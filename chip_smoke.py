@@ -11,7 +11,10 @@ Phases, each checked, none allowed to fail:
    every kernel under tez_tpu_torch/csrc, all sources at once;
 2. each kernel against its plain PyTorch version on the card, bit-exact,
    at the slice's shapes, with its time, the plain version's time, its
-   memory-bound time and (merge rank) a torch.searchsorted yardstick;
+   memory-bound time and a yardstick: torch.searchsorted for merge rank,
+   a stable torch.sort of packed keys for the merge-path pair, which is
+   also timed against the composite it replaced on the main path (two
+   merge-rank launches and a scatter);
 3. map side: 4 producers, each a DeviceSorter(num_partitions=4,
    key_width=12, 256 MB spans) fed two full spans of bench-style records
    (12-byte Zipf(1.3) keys "w" + 11 digits over a 50k vocabulary, 8-byte
@@ -24,10 +27,13 @@ Phases, each checked, none allowed to fail:
    value 1, the same producers with sum_long_combiner, the merge, a last
    combine, every count checked against a collections.Counter golden.
 
-Kernel launch counts are zeroed before phase 3 and read after phase 6.
-The last two lines are one JSON object of per-kernel numbers and
+Kernel launch counts are zeroed before phase 3 and read after phase 6:
+each TPU kernel's counterpart on the main path must have been launched,
+and the general-query merge rank, which the main path no longer calls, not
+at all.  The last two lines are one JSON object of per-kernel numbers and
 {"ok": true, "device": {...}}.  Without a card the script exits non-zero
-before printing any result.
+before printing any result.  --tile-sweep also times the merge-path
+kernel at other CTA shapes.
 """
 from __future__ import annotations
 
@@ -148,7 +154,21 @@ def stable_order(rank_of_record: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def kernel_phase(seed: int, bw_tb_s: float) -> dict:
+#: TPU kernel -> its counterparts that the slice's main path launches
+MAIN_PATH_COUNTERPARTS = (
+    ("fnv_hash_pallas", "tez_tpu/ops/pallas_kernels.py:34",
+     ("fnv_hash_bytes", "fnv_hash_lanes")),
+    ("merge_rank_pallas", "tez_tpu/ops/pallas_kernels.py:76",
+     ("merge_path_pair",)),
+)
+#: (threads, rows per thread, boundary search group) of the merge-path
+#: kernels tried by --tile-sweep
+TILE_SHAPES = ((128, 4, 0), (128, 8, 0), (128, 16, 0), (128, 15, 0),
+               (256, 4, 0), (256, 8, 0), (64, 16, 0), (128, 16, 1),
+               (128, 16, 8), (128, 8, 1), (128, 8, 8))
+
+
+def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
     import torch
     from tez_tpu_torch.ops import kernels
     dev = torch.device("cuda")
@@ -158,9 +178,14 @@ def kernel_phase(seed: int, bw_tb_s: float) -> dict:
     def bound_ms(nbytes: int) -> float:
         return nbytes / (bw_tb_s * 1e12) * 1e3
 
+    def max_err(got, want) -> int:
+        return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                   for g, w in zip(got, want))
+
     def record(name, source, replaces, got, want, ms, plain_ms, nbytes,
                library_ms=None, shape=""):
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        err = max_err(*((got, want) if isinstance(got, tuple)
+                        else ((got,), (want,))))
         check(err == 0, f"{name} {shape}: kernel disagrees with its plain "
                         f"version (max abs err {err})")
         row = {"name": name, "route": "cuda", "source": source,
@@ -269,6 +294,71 @@ def kernel_phase(seed: int, bw_tb_s: float) -> dict:
             if width == 3 and not count_equal:
                 rows["merge_rank"] = row
         del t, packed_run, packed_q
+
+    # merge-path pair: the map side's resident pair (2^21 a side, W = 3),
+    # one rung of the reduce ladder (2^24 a side, W = 4), the ladder's odd
+    # carry (na = 2 nb) and a row wider than the templated flavours
+    # (W = 9).  idx is the int32 row index of the concatenation.
+    def merge_path_case(na, nb, width, label, main_row):
+        a, a_len = sorted_run(na, width)
+        b, b_len = sorted_run(nb, width)
+        t = [torch.from_numpy(x.view(np.int32)).to(dev)
+             for x in (a, a_len, np.arange(na, dtype=np.uint32),
+                       b, b_len, np.arange(na, na + nb, dtype=np.uint32))]
+        got = kernels.merge_path_pair(*t)
+        want = kernels._merge_path_plain(*t)
+        # the composite the main path ran before: two merge_rank launches,
+        # arange + rank, six index_copy_
+        before = kernels._merge_path_plain(*t, rank=kernels.merge_rank)
+        check(max_err(before, want) == 0, f"merge-path composite {label}")
+        # yardstick: one stable sort of the concatenation, lane 0 packed
+        # with the length into one int64 key (as the merge-rank row packs)
+        packed = torch.cat([(t[0][:, 0].to(torch.int64) & 0xFFFFFFFF) << 32
+                            | (t[1].to(torch.int64) & 0xFFFFFFFF),
+                            (t[3][:, 0].to(torch.int64) & 0xFFFFFFFF) << 32
+                            | (t[4].to(torch.int64) & 0xFFFFFFFF)])
+        row = record(
+            "merge_path_pair", "tez_tpu_torch/csrc/merge_path.cu",
+            "tez_tpu/ops/pallas_kernels.py:76", got, want,
+            cuda_ms(lambda: kernels.merge_path_pair(*t), 20),
+            cuda_ms(lambda: kernels._merge_path_plain(*t), 3),
+            2 * (na + nb) * (4 * width + 8),
+            library_ms=cuda_ms(lambda: torch.sort(packed, stable=True), 10),
+            shape=f"na={na} nb={nb} W={width} {label}")
+        row["pr1_composite_ms"] = cuda_ms(
+            lambda: kernels._merge_path_plain(*t, rank=kernels.merge_rank),
+            10)
+        log(f"kernel merge_path_pair {label}: pr1_composite_ms="
+            f"{row['pr1_composite_ms']:.4f} (two merge_rank + scatter)")
+        if tile_sweep:
+            for threads, per_thread, group in TILE_SHAPES:
+                shape = dict(threads=threads, rows_per_thread=per_thread,
+                             group=group)
+                out = kernels._merge_path_launch(*t, **shape)
+                check(max_err(out[:3], want) == 0,
+                      f"merge_path_pair tile {shape}")
+                ms = cuda_ms(lambda: kernels._merge_path_launch(*t, **shape),
+                             20)
+                log(f"tile sweep {label}: threads={threads} rows_per_thread="
+                    f"{per_thread} group={group} tile={out[4]} ms={ms:.4f}")
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    kernels.merge_path_pair(*t)
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA:
+                    log(f"tile sweep {label}: device op {e.key[:60]} "
+                        f"count={e.count} ms_each="
+                        f"{e.self_device_time_total / e.count / 1e3:.4f}")
+        if main_row:
+            rows["merge_path_pair"] = row
+
+    merge_path_case(1 << 21, 1 << 21, 3, "map pair", False)
+    merge_path_case(1 << 24, 1 << 24, 4, "reduce rung", True)
+    merge_path_case(1 << 21, 1 << 20, 4, "odd carry", False)
+    merge_path_case(1 << 20, 1 << 20, 9, "generic W", False)
     torch.cuda.synchronize()
     return rows
 
@@ -525,6 +615,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace phases 3-6 with torch.profiler and print "
                          "the device's busy time by operation")
+    ap.add_argument("--tile-sweep", action="store_true",
+                    help="time the merge-path kernel at each CTA shape of "
+                         "TILE_SHAPES in phase 2")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -545,7 +638,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {kname}: {line.strip()}")
 
-    rows = kernel_phase(args.seed, memory_tb_s(name))
+    rows = kernel_phase(args.seed, memory_tb_s(name), args.tile_sweep)
     t0 = time.perf_counter()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -559,8 +652,17 @@ def main(argv=None) -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for kname, row in rows.items():
         row["launches"] = launches[kname]
-        check(row["launches"] > 0, f"{kname} was never launched on the "
-                                   f"slice's main path")
+    for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:
+        for kname in names:
+            log(f"launch check: {tpu_kernel} ({where}) -> {kname}: "
+                f"{launches[kname]} launches on the slice")
+            check(launches[kname] > 0, f"{kname} was never launched on the "
+                                       f"slice's main path")
+    log(f"launch check: merge_rank (merge_rank_pallas's general-query "
+        f"counterpart, held in phase 2): {launches['merge_rank']} launches "
+        f"on the slice")
+    check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
+                                       "merges should run merge_path_pair")
     log(card)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """tez_tpu_torch on the card: each CUDA kernel against its plain PyTorch
-version at every load flavour the kernels compile, and the slice's entry
-points on device="cuda" against the same calls on device="cpu", bit for
-bit.  Every test needs a card and skips without one.
+version at every load flavour and lane width the kernels compile, and the
+slice's entry points on device="cuda" against the same calls on
+device="cpu", bit for bit.  Every test needs a card and skips without one.
 
 This file imports neither JAX nor tez_tpu, so it runs on a machine that
 has only the port's dependencies:
@@ -74,6 +74,113 @@ def test_merge_rank_kernel(cuda, w):
     for count_equal in (False, True):
         got = kernels.merge_rank(*[a.to(cuda) for a in host], count_equal)
         assert torch.equal(got.cpu(), kernels.merge_rank(*host, count_equal))
+
+
+def _merge_pair(seed, na, nb, w, ties=3, sentinels=(0, 0), offset=0):
+    """Host int32 tensors (a_lanes, a_lens, a_idx, b_lanes, b_lens, b_idx)
+    of two runs sorted under the composite comparator; `sentinels` pad rows
+    end each run.  offset > 0 makes each column a contiguous slice that
+    starts `offset` rows into a larger tensor (unaligned starts)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, sent, base in ((na, sentinels[0], 0), (nb, sentinels[1], na)):
+        lanes = rng.integers(0, ties, (n + offset, w)).astype(np.uint32)
+        lens = rng.integers(1, 9, n + offset).astype(np.uint32) if ties > 1 \
+            else np.full(n + offset, 4, np.uint32)
+        order = np.lexsort((lens[offset:],) + tuple(
+            lanes[offset:, i] for i in range(w - 1, -1, -1)))
+        lanes[offset:], lens[offset:] = lanes[offset:][order], \
+            lens[offset:][order]
+        if sent:
+            lanes[n + offset - sent:] = 0xFFFFFFFF
+            lens[n + offset - sent:] = 0xFFFFFFFF
+        idx = np.arange(base - offset, base + n, dtype=np.int32)
+        out += [_t(lanes)[offset:], _t(lens)[offset:], _t(idx)[offset:]]
+    return out
+
+
+def _check_merge_path(cuda, host, **launch):
+    """Kernel == plain version (on the CPU) on all three outputs, and the
+    kernel's tile splits == merge_path_splits at the tile boundaries."""
+    dev = [t.to(cuda) for t in host]
+    got = kernels._merge_path_launch(*dev, **launch)
+    want = kernels.merge_path_pair(*host)
+    for g, w in zip(got[:3], want):
+        assert torch.equal(g.cpu(), w)
+    n, tile = got[0].shape[0], got[4]
+    diagonals = (torch.arange(got[3].shape[0]) * tile).clamp(max=n)
+    assert torch.equal(got[3].cpu(), kernels.merge_path_splits(
+        host[0], host[1], host[3], host[4], diagonals))
+
+
+@pytest.mark.parametrize("na,nb", [(3001, 2999), (4100, 2050), (0, 1777),
+                                   (1777, 0), (1, 1), (5, 4096)])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 9])
+def test_merge_path_pair_kernel(cuda, w, na, nb):
+    """Ragged sizes (not tile multiples), the odd carry na = 2 nb, empty
+    sides; sentinel tails on both runs.  W <= 8 takes the register
+    flavours, W = 9 the generic one."""
+    host = _merge_pair(w * 1000 + na, na, nb, w,
+                       sentinels=(na // 64, nb // 32))
+    _check_merge_path(cuda, host)
+    kernels.reset_launches()
+    out = kernels.merge_path_pair(*[t.to(cuda) for t in host])
+    assert kernels.launches["merge_path_pair"] == 1
+    assert out[2].dtype == torch.int32
+
+
+@pytest.mark.parametrize("w", [1, 4, 9])
+def test_merge_path_pair_kernel_all_equal_and_all_sentinel(cuda, w):
+    """Every row equal (every A row must precede every B row); both runs
+    all pad sentinels; one run all sentinels against real rows."""
+    _check_merge_path(cuda, _merge_pair(w, 5000, 3000, w, ties=1))
+    _check_merge_path(cuda, _merge_pair(w, 2500, 2500, w,
+                                        sentinels=(2500, 2500)))
+    _check_merge_path(cuda, _merge_pair(w, 2100, 4000, w,
+                                        sentinels=(2100, 0)))
+
+
+@pytest.mark.parametrize("threads,rows_per_thread,group", [
+    (32, 1, 1), (64, 4, 2), (128, 8, 32), (128, 16, 1), (256, 8, 8),
+    (1024, 2, 4), (128, 4, 16), (128, 15, 0), (96, 3, 0)])
+def test_merge_path_pair_kernel_tile_shapes(cuda, threads, rows_per_thread,
+                                            group):
+    """Other CTA shapes and boundary-search groups, and inputs that start
+    off a 16-byte boundary."""
+    for w in (3, 4, 9):
+        _check_merge_path(cuda, _merge_pair(w, 7001, 6003, w,
+                                            sentinels=(30, 5), offset=3),
+                          threads=threads, rows_per_thread=rows_per_thread,
+                          group=group)
+
+
+def test_merge_path_pair_kernel_wide_rows_cut_the_tile(cuda):
+    """Rows of W = 40 lanes do not fit a 2048-row tile (128 threads x 16
+    rows) in shared memory: the tile is cut to fit, and the merge is still
+    exact."""
+    host = _merge_pair(40, 3000, 2000, 40, ties=2, sentinels=(10, 10))
+    dev = [t.to(cuda) for t in host]
+    shape = dict(threads=128, rows_per_thread=16)
+    assert kernels._merge_path_launch(*dev, **shape)[4] < 2048
+    _check_merge_path(cuda, host, **shape)
+
+
+def test_merge_path_pair_kernel_thousands_of_tiles(cuda):
+    """2^22 rows a side: a partition array of thousands of entries.  The
+    plain version runs on the card here (the host would take minutes)."""
+    host = _merge_pair(7, 1 << 22, 1 << 22, 3, ties=8,
+                       sentinels=(1 << 16, 1 << 16))
+    dev = [t.to(cuda) for t in host]
+    got = kernels._merge_path_launch(*dev)
+    assert got[3].shape[0] > 2000
+    want = kernels._merge_path_plain(*dev)
+    for g, w in zip(got[:3], want):
+        assert torch.equal(g, w)
+    n, tile = got[0].shape[0], got[4]
+    diagonals = (torch.arange(got[3].shape[0], device=cuda) * tile)\
+        .clamp(max=n)
+    assert torch.equal(got[3], kernels.merge_path_splits(
+        dev[0], dev[1], dev[3], dev[4], diagonals))
 
 
 def _batches(seed, n_batches, n, max_key):

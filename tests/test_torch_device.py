@@ -178,6 +178,57 @@ def test_merge_resident_slices_mixed_widths():
         jdevice.merge_resident_slices(j1 + j2))
 
 
+@pytest.mark.parametrize("sizes", [(256, 256), (512, 256), (256, 512),
+                                   (1024, 1024)])
+def test_merge_path_pair_matches_tez_tpu(sizes):
+    """One rung: the port's _merge_path_pair (the merge-path kernel's plain
+    version) == tez_tpu's on bucketed, sentinel-tailed resident runs, with
+    each package's own prep (tez_tpu: _merge_path_prep; the port: int32
+    lengths as sort lengths, _run_index)."""
+    rng = np.random.default_rng(sum(sizes))
+    jruns, truns = [], []
+    for i, nb in enumerate(sizes):
+        n = nb - int(rng.integers(1, nb // 4))
+        jv, tv = _resident_views(rng, [n], 8)
+        (jl, jn, _lo, _hi), (tl, tn, _lo, _hi) = jv[0], tv[0]
+        assert jl.shape[0] == nb
+        sort_lens, jidx = jdevice._merge_path_prep(jl, jn, i * 1024)
+        tidx = tdevice._run_index(i, 1024, torch.device("cpu"))[:nb]
+        np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal(tn.numpy().view(np.uint32),
+                                      np.asarray(sort_lens))
+        jruns.append((jl, sort_lens, jidx))
+        truns.append((tl, tn, tidx))
+    want = jdevice._merge_path_pair(*jruns[0], *jruns[1])
+    got = tdevice._merge_path_pair(*truns[0], *truns[1])
+    assert got[2].dtype == torch.int32
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).view(np.int32))
+
+
+@pytest.mark.parametrize("sizes", [[256, 256, 256], [100, 300, 50, 7, 260],
+                                   [600, 600, 600, 600, 600, 600, 600]])
+def test_merge_ladder_odd_carry(sizes):
+    """Odd run counts carry a run up a rung (na = 2 nb at the next level):
+    the resident and generic ladders still equal tez_tpu's."""
+    rng = np.random.default_rng(len(sizes))
+    jviews, tviews = _resident_views(rng, sizes, 8)
+    np.testing.assert_array_equal(tdevice.merge_resident_slices(tviews),
+                                  jdevice.merge_resident_slices(jviews))
+    parts_l, lanes_l, lens_l = [], [], []
+    for n in sizes:
+        lanes, lengths = _lanes(rng, n, 8)
+        parts = rng.integers(0, 2, n).astype(np.int32)
+        order = np.lexsort((np.minimum(lengths, 9), lanes[:, 1],
+                            lanes[:, 0], parts))
+        parts_l.append(parts[order])
+        lanes_l.append(lanes[order])
+        lens_l.append(lengths[order])
+    np.testing.assert_array_equal(
+        tdevice.merge_path_runs(parts_l, lanes_l, lens_l, device="cpu"),
+        jdevice.merge_path_runs(parts_l, lanes_l, lens_l))
+
+
 @pytest.mark.parametrize("sizes", [[300, 0, 41, 0, 7], [0, 0], [5],
                                    [256, 256, 1]])
 def test_merge_path_runs(sizes):

@@ -1,6 +1,6 @@
-"""Port parity: the plain PyTorch versions of tez_tpu_torch's two CUDA
-kernels against the JAX package's Pallas kernels (interpret mode) and their
-XLA bodies, bit for bit; and the wrappers' input checks.  The CUDA kernels
+"""Port parity: the plain PyTorch versions of tez_tpu_torch's CUDA kernels
+against the JAX package's Pallas kernels (interpret mode) and their XLA
+bodies, bit for bit; and the wrappers' input checks.  The CUDA kernels
 against their plain versions are in test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
@@ -158,8 +158,11 @@ def test_launch_counts_stay_zero_for_plain_versions():
     kernels.reset_launches()
     kernels.fnv_hash_bytes(torch.zeros((4, 8), dtype=torch.uint8),
                            torch.ones(4, dtype=torch.int32), 3)
+    z = torch.zeros((4, 2), dtype=torch.int32)
+    n = torch.zeros(4, dtype=torch.int32)
+    kernels.merge_path_pair(z, n, n, z, n, n)
     assert kernels.launches == {"fnv_hash_bytes": 0, "fnv_hash_lanes": 0,
-                                "merge_rank": 0}
+                                "merge_rank": 0, "merge_path_pair": 0}
 
 
 def test_build_targets_are_content_addressed():
@@ -168,3 +171,124 @@ def test_build_targets_are_content_addressed():
         assert src.endswith(f"csrc/{name}.cu")
         assert lib.startswith(_build.BUILD_DIR)
         assert _build._target(name) == (src, lib)
+
+
+# ---------------------------------------------------------------------------
+# merge-path pair merge
+# ---------------------------------------------------------------------------
+def _merge_run(rng, n, w, ties, sentinels=0):
+    """A run sorted under the composite comparator: lanes from `ties`
+    values (few values: many equal keys), lengths 1..8, the last
+    `sentinels` rows pad sentinels (lanes and length 0xFFFFFFFF)."""
+    run = rng.integers(0, ties, (n, w)).astype(np.uint32)
+    run_len = rng.integers(1, 9, n).astype(np.uint32) if ties > 1 else \
+        np.full(n, 4, np.uint32)
+    order = np.lexsort((run_len,) + tuple(run[:, i]
+                                          for i in range(w - 1, -1, -1)))
+    run, run_len = run[order], run_len[order]
+    if sentinels:
+        run[-sentinels:] = 0xFFFFFFFF
+        run_len[-sentinels:] = 0xFFFFFFFF
+    return run, run_len
+
+
+#: (na, nb, lane values, sentinel rows of A, of B)
+_PAIR_CASES = {
+    "na_eq_nb": (300, 300, 3, 0, 0),
+    "na_2nb": (512, 256, 3, 0, 0),
+    "all_equal": (200, 150, 1, 0, 0),
+    "sentinel_tails": (260, 260, 2, 9, 33),
+    "na_2nb_sentinels": (600, 300, 4, 20, 7),
+}
+
+
+def _pair_inputs(w, case, seed):
+    rng = np.random.default_rng(seed)
+    na, nb, ties, sa, sb = _PAIR_CASES[case] if isinstance(case, str) \
+        else case
+    a, a_len = _merge_run(rng, na, w, ties, sa)
+    b, b_len = _merge_run(rng, nb, w, ties, sb)
+    a_idx = np.arange(na, dtype=np.int32)
+    b_idx = np.arange(na, na + nb, dtype=np.int32)
+    return a, a_len, a_idx, b, b_len, b_idx
+
+
+@pytest.mark.parametrize("case", sorted(_PAIR_CASES))
+@pytest.mark.parametrize("w", [1, 3, 4, 9])
+def test_merge_path_pair_plain_matches_tez_tpu(w, case):
+    """kernels.merge_path_pair on CPU tensors == tez_tpu's _merge_path_pair
+    (two cross ranks + scatter) on lanes, lengths and idx."""
+    arrays = _pair_inputs(w, case, seed=w * 101 + len(case))
+    want = jdevice._merge_path_pair(*[jnp.asarray(x) for x in arrays])
+    got = kernels.merge_path_pair(*[_t(x) for x in arrays])
+    for g, x in zip(got, want):
+        x = np.asarray(x)
+        np.testing.assert_array_equal(g.numpy(), x.view(np.int32))
+
+
+def _oracle_merge(a, a_len, a_idx, b, b_len, b_idx):
+    """Stable lexsort of the concatenation (A before B on equal keys)."""
+    lanes = np.concatenate([a, b])
+    lens = np.concatenate([a_len, b_len])
+    order = np.lexsort((lens,) + tuple(lanes[:, i] for i in
+                                       range(lanes.shape[1] - 1, -1, -1)))
+    return lanes[order], lens[order], np.concatenate([a_idx, b_idx])[order]
+
+
+@pytest.mark.parametrize("empty", ["a", "b", "both"])
+@pytest.mark.parametrize("w", [1, 3, 4, 9])
+def test_merge_path_pair_plain_empty_side(w, empty):
+    """An empty run, which tez_tpu's _merge_path_pair never receives (its
+    runs are buckets of >= 256 rows; its search cannot index an empty run),
+    against a stable lexsort of the concatenation."""
+    na = 0 if empty in ("a", "both") else 70
+    nb = 0 if empty in ("b", "both") else 70
+    arrays = _pair_inputs(w, (na, nb, 3, 0, 5 if nb else 0), seed=w)
+    got = kernels.merge_path_pair(*[_t(x) for x in arrays])
+    for g, x in zip(got, _oracle_merge(*arrays)):
+        np.testing.assert_array_equal(g.numpy(), x.view(np.int32))
+
+
+@pytest.mark.parametrize("na,nb", [(40, 40), (80, 40), (0, 25), (25, 0),
+                                   (1, 60)])
+def test_merge_path_splits_match_ranks(na, nb):
+    """The co-rank i(d) at every diagonal d == the number of A rows whose
+    merged position (i + rank of a_i in B, tez_tpu's _rank_search) is < d.
+    Two lane values and two lengths: long runs of equal keys."""
+    rng = np.random.default_rng(na * 7 + nb)
+    a = rng.integers(0, 2, (na, 2)).astype(np.uint32)
+    b = rng.integers(0, 2, (nb, 2)).astype(np.uint32)
+    a_len = rng.integers(1, 3, na).astype(np.uint32)
+    b_len = rng.integers(1, 3, nb).astype(np.uint32)
+    (a, a_len), (b, b_len) = [
+        (x[o], xl[o]) for x, xl in ((a, a_len), (b, b_len))
+        for o in [np.lexsort((xl, x[:, 1], x[:, 0]))]]
+    if nb:
+        rank_a = np.asarray(jdevice._rank_search(
+            jnp.asarray(b), jnp.asarray(b_len), jnp.asarray(a),
+            jnp.asarray(a_len), False)) if na else np.zeros(0, np.int64)
+    else:
+        rank_a = np.zeros(na, np.int64)
+    pos_a = np.arange(na) + rank_a
+    diagonals = np.arange(na + nb + 1)
+    want = np.searchsorted(pos_a, diagonals, side="left")
+    got = kernels.merge_path_splits(_t(a), _t(a_len), _t(b), _t(b_len),
+                                    torch.from_numpy(diagonals))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_merge_path_pair_checks_inputs():
+    lanes = torch.zeros((4, 2), dtype=torch.int32)
+    n = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.merge_path_pair(lanes, n, n, torch.zeros((4, 3),
+                                                         dtype=torch.int32),
+                                n, n)
+    with pytest.raises(ValueError):
+        kernels.merge_path_pair(lanes, n, torch.zeros(5, dtype=torch.int32),
+                                lanes, n, n)
+    with pytest.raises(TypeError):
+        kernels.merge_path_pair(lanes, n, n.to(torch.int64), lanes, n, n)
+    with pytest.raises(ValueError):
+        kernels.merge_path_pair(lanes, n, n, torch.zeros((8, 2),
+                                dtype=torch.int32)[::2], n, n)

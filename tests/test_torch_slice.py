@@ -90,7 +90,7 @@ def test_slice_phases_check_their_goldens_on_the_host():
     args = type("Args", (), {"seed": 3, "producers": 2, "span_mb": 0.25})
     launches = chip_smoke.slice_phases(args, device="cpu")
     assert launches == {"fnv_hash_bytes": 0, "fnv_hash_lanes": 0,
-                        "merge_rank": 0}
+                        "merge_rank": 0, "merge_path_pair": 0}
 
 
 def test_import_guard_no_jax_no_tez_tpu():

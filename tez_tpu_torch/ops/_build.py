@@ -20,7 +20,7 @@ from typing import Dict, Iterable, List, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("fnv_hash", "merge_rank")
+KERNELS = ("fnv_hash", "merge_rank", "merge_path")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -3,18 +3,19 @@
 The PyTorch counterpart of tez_tpu/ops/device.py.  Each function keeps its
 tez_tpu name and contract (host numpy in, host numpy out, except where a
 device view is returned for a later merge); ``device`` names where the work
-runs and defaults to the card.  The two TPU kernels are CUDA kernels here
+runs and defaults to the card.  The TPU kernels are CUDA kernels here
 (ops/kernels.py): tez_tpu's ``_hash_to_partitions`` and the partition step
 over ``_fnv_rows_from_lanes`` are ``kernels.fnv_hash_bytes`` and
-``kernels.fnv_hash_lanes``; ``_rank_rows`` is ``kernels.merge_rank``.
-Stable sorts, gathers, the merge-path scatter and the partition counts are
-plain PyTorch calls, as tez_tpu left them to XLA.
+``kernels.fnv_hash_lanes``; ``_merge_path_pair``, two ``_rank_rows`` and a
+scatter in tez_tpu, is one ``kernels.merge_path_pair``.  Stable sorts,
+gathers and the partition counts are plain PyTorch calls, as tez_tpu left
+them to XLA.
 
 Representation: key lanes and sort lengths are u32 values carried as int32
 bits (kernels.py).  An int32 length of -1 -- the pad sentinel -- has the
 bits of u32 0xFFFFFFFF, the sentinel sort length, so tez_tpu's
 ``_merge_path_prep`` mapping from lengths to sort lengths is the identity
-here and only the row index remains of it.
+here and only the int32 row index remains of it.
 
 Shapes keep tez_tpu's power-of-two bucket padding and its tail sentinels:
 the permutations that ``_map_bucketed_perm`` and the merge ladder compute
@@ -228,7 +229,7 @@ def merge_resident_slices(slices, kernel: str = "merge_path") -> np.ndarray:
         lens_list.append(ln)
     if kernel == "merge_path":
         perm = _merge_path_ladder([
-            (sl, ln, i * common + torch.arange(common, device=sl.device))
+            (sl, ln, _run_index(i, common, sl.device))
             for i, (sl, ln) in enumerate(zip(lanes_list, lens_list))])
     elif kernel == "sort":
         perm = _fused_resident_merge(lanes_list, lens_list)
@@ -243,26 +244,18 @@ def merge_resident_slices(slices, kernel: str = "merge_path") -> np.ndarray:
 # tile [0, na+nb) exactly; the asymmetric </<= pair makes equal keys emit
 # in run order.  A k-way merge is a log2(k) ladder of pair merges.
 # ---------------------------------------------------------------------------
-def _merge_path_pair(a_lanes, a_lens, a_idx, b_lanes, b_lens, b_idx):
-    """One merge level: rank each run in the other, scatter both runs to
-    their output positions.  Sentinel rows take part, so the output is again
-    a sorted run with every real row in the prefix."""
-    na, nb = a_lanes.shape[0], b_lanes.shape[0]
-    dev = a_lanes.device
-    ra = kernels.merge_rank(b_lanes, b_lens, a_lanes, a_lens,
-                            count_equal=False)
-    rb = kernels.merge_rank(a_lanes, a_lens, b_lanes, b_lens,
-                            count_equal=True)
-    pos_a = torch.arange(na, device=dev) + ra
-    pos_b = torch.arange(nb, device=dev) + rb
-    out = []
-    for a, b in ((a_lanes, b_lanes), (a_lens, b_lens), (a_idx, b_idx)):
-        o = torch.empty((na + nb,) + tuple(a.shape[1:]), dtype=a.dtype,
+def _run_index(i: int, common: int, dev: torch.device) -> torch.Tensor:
+    """int32 positions of run i's rows in the bucketed concatenation."""
+    return torch.arange(i * common, (i + 1) * common, dtype=torch.int32,
                         device=dev)
-        o.index_copy_(0, pos_a, a)
-        o.index_copy_(0, pos_b, b)
-        out.append(o)
-    return tuple(out)
+
+
+def _merge_path_pair(a_lanes, a_lens, a_idx, b_lanes, b_lens, b_idx):
+    """One merge level, one merge-path kernel: both runs land at their
+    output positions.  Sentinel rows take part, so the output is again a
+    sorted run with every real row in the prefix."""
+    return kernels.merge_path_pair(a_lanes, a_lens, a_idx, b_lanes, b_lens,
+                                   b_idx)
 
 
 def _merge_path_ladder(runs):
@@ -308,7 +301,7 @@ def merge_path_runs(parts_list: Sequence[np.ndarray],
         lens = np.full(common, -1, dtype=np.int32)
         lens[:n] = np.minimum(lengths_list[i].astype(np.int64), width_cap)
         runs.append((_upload(comp, dev), _upload(lens, dev),
-                     j * common + torch.arange(common, device=dev)))
+                     _run_index(j, common, dev)))
     perm = _host(_merge_path_ladder(runs))
     mapped = _map_bucketed_perm(perm, [counts[i] for i in live], common)
     if len(live) != len(counts):   # re-offset into the FULL concatenation

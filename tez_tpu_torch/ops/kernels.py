@@ -1,6 +1,7 @@
 """Kernel wrappers: the counterpart of tez_tpu/ops/pallas_kernels.py.
 
-Two hand-written CUDA kernels replace the repository's two Pallas kernels:
+Three hand-written CUDA kernels stand for the repository's two Pallas
+kernels:
 
 * ``fnv_hash_bytes`` / ``fnv_hash_lanes`` (``csrc/fnv_hash.cu``) replace
   ``fnv_hash_pallas`` (pallas_kernels.py:34): FNV-1a of each row's key
@@ -8,12 +9,17 @@ Two hand-written CUDA kernels replace the repository's two Pallas kernels:
   partition INT32_MAX.  The byte-matrix layout serves ``hash_partition``,
   ``hash_sort_span`` and the fused pipeline; the big-endian lane layout
   serves the resident span sort (tez_tpu's ``_fnv_rows_from_lanes``).
-* ``merge_rank`` (``csrc/merge_rank.cu``) replaces ``merge_rank_pallas``
-  (pallas_kernels.py:76): the rank of every query row in a sorted run.
+* ``merge_rank`` (``csrc/merge_rank.cu``) is the counterpart of
+  ``merge_rank_pallas`` (pallas_kernels.py:76) and its contract: the rank of
+  every query row in a sorted run.
+* ``merge_path_pair`` (``csrc/merge_path.cu``) replaces what the main path
+  did with ``merge_rank_pallas``: two cross ranks and the scatter of
+  tez_tpu's ``_merge_path_pair`` (device.py:489), as one merge-path merge.
 
 Beside each kernel sits its plain PyTorch version (``_fnv_rows``,
 ``_fnv_rows_from_lanes``, ``_lex_lt``, ``_rank_search`` keep the names of
-the tez_tpu bodies they mirror).  A wrapper runs the plain version only for
+the tez_tpu bodies they mirror; ``_merge_path_plain`` is tez_tpu's
+``_merge_path_pair`` body).  A wrapper runs the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 ``launches`` counts kernel launches per wrapper.
 
@@ -37,7 +43,15 @@ _SIGN_BIT = -2 ** 31
 
 #: kernel launches per wrapper; reset with reset_launches()
 launches: Dict[str, int] = {"fnv_hash_bytes": 0, "fnv_hash_lanes": 0,
-                            "merge_rank": 0}
+                            "merge_rank": 0, "merge_path_pair": 0}
+
+#: CTA shape of the merge-path tile kernel: threads, and output rows each
+#: thread merges (a tile is their product); and the lanes that search one
+#: tile boundary together, 0 letting the kernel choose by the number of
+#: boundaries (PERF.md records the choice)
+MERGE_PATH_THREADS = 128
+MERGE_PATH_ROWS_PER_THREAD = 8
+MERGE_PATH_GROUP = 0
 
 _VP = ctypes.c_void_p
 _ARGTYPES = {
@@ -48,7 +62,13 @@ _ARGTYPES = {
     "tez_merge_rank": [_VP, _VP, ctypes.c_longlong, _VP, _VP,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP,
                        _VP],
+    "tez_merge_path_tile": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    "tez_merge_path_pair": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _VP,
+                            _VP],
 }
+_RESTYPES = {"tez_merge_path_tile": ctypes.c_longlong}
 
 
 def reset_launches() -> None:
@@ -60,7 +80,7 @@ def _entry(lib_name: str, fn_name: str):
     from tez_tpu_torch.ops import _build
     fn = getattr(_build.library(lib_name), fn_name)
     fn.argtypes = _ARGTYPES[fn_name]
-    fn.restype = ctypes.c_int
+    fn.restype = _RESTYPES.get(fn_name, ctypes.c_int)
     return fn
 
 
@@ -249,3 +269,107 @@ def merge_rank(run_lanes: torch.Tensor, run_lens: torch.Tensor,
                 q_lanes.data_ptr(), q_lens.data_ptr(), m, w,
                 int(bool(count_equal)), out.data_ptr())
     return out
+
+
+# ---------------------------------------------------------------------------
+# merge-path pair merge
+# ---------------------------------------------------------------------------
+def _merge_path_plain(a_lanes, a_lens, a_idx, b_lanes, b_lens, b_idx,
+                      rank=_rank_search):
+    """Plain merge of two sorted runs as two cross ranks and a scatter
+    (tez_tpu device._merge_path_pair): a_i goes to i + |{b < a_i}|, b_j to
+    j + |{a <= b_j}|.  `rank` computes the ranks (``merge_rank`` gives the
+    composite the slice ran before the merge-path kernel)."""
+    na, nb = a_lanes.shape[0], b_lanes.shape[0]
+    dev = a_lanes.device
+    pos_a = torch.arange(na, device=dev) + \
+        rank(b_lanes, b_lens, a_lanes, a_lens, False)
+    pos_b = torch.arange(nb, device=dev) + \
+        rank(a_lanes, a_lens, b_lanes, b_lens, True)
+    out = []
+    for a, b in ((a_lanes, b_lanes), (a_lens, b_lens), (a_idx, b_idx)):
+        o = torch.empty((na + nb,) + tuple(a.shape[1:]), dtype=a.dtype,
+                        device=dev)
+        o.index_copy_(0, pos_a, a)
+        o.index_copy_(0, pos_b, b)
+        out.append(o)
+    return tuple(out)
+
+
+def merge_path_splits(a_lanes: torch.Tensor, a_lens: torch.Tensor,
+                      b_lanes: torch.Tensor, b_lens: torch.Tensor,
+                      diagonals: torch.Tensor) -> torch.Tensor:
+    """Plain co-rank search, the partition step of ``merge_path_pair``: for
+    each diagonal d, the number of A rows among the first d rows of the
+    merge (ties go to A).  int32 of diagonals' shape."""
+    na, nb = a_lanes.shape[0], b_lanes.shape[0]
+    d = diagonals.to(torch.int64)
+    lo = (d - nb).clamp(min=0)
+    hi = d.clamp(max=na)
+    for _ in range(max(na, 1).bit_length() + 1):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        ai = mid.clamp(max=max(na - 1, 0))
+        bj = (d - 1 - mid).clamp(0, max(nb - 1, 0))
+        if na and nb:     # A[mid] <= B[d-1-mid]  <=>  not (B < A)
+            take_a = ~_lex_lt(b_lanes[bj], b_lens[bj], a_lanes[ai],
+                              a_lens[ai])
+        else:             # one side empty: lo == hi from the start
+            take_a = torch.zeros_like(active)
+        lo = torch.where(active & take_a, mid + 1, lo)
+        hi = torch.where(active & ~take_a, mid, hi)
+    return lo.to(torch.int32)
+
+
+def _merge_path_launch(a_lanes, a_lens, a_idx, b_lanes, b_lens, b_idx,
+                       threads: int = MERGE_PATH_THREADS,
+                       rows_per_thread: int = MERGE_PATH_ROWS_PER_THREAD,
+                       group: int = MERGE_PATH_GROUP):
+    """Launch the merge-path kernels on CUDA tensors; returns (lanes, lens,
+    idx, splits, tile) -- the co-rank of every tile boundary with the tile's
+    rows, for tests and tuning."""
+    na, nb = a_lanes.shape[0], b_lanes.shape[0]
+    w, dev = a_lanes.shape[1], a_lanes.device
+    tile = _entry("merge_path", "tez_merge_path_tile")(
+        w, threads, rows_per_thread)
+    if tile <= 0:
+        raise ValueError(f"no merge-path tile of {threads} threads fits "
+                         f"rows of {w} lanes in shared memory")
+    n = na + nb
+    splits = torch.empty(-(-n // tile) + 1, dtype=torch.int32, device=dev)
+    out_lanes = torch.empty((n, w), dtype=torch.int32, device=dev)
+    out_lens = torch.empty(n, dtype=torch.int32, device=dev)
+    out_idx = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _launch("merge_path_pair", "merge_path", "tez_merge_path_pair",
+                a_lanes.data_ptr(), a_lens.data_ptr(), a_idx.data_ptr(), na,
+                b_lanes.data_ptr(), b_lens.data_ptr(), b_idx.data_ptr(), nb,
+                w, threads, rows_per_thread, group, splits.data_ptr(),
+                out_lanes.data_ptr(), out_lens.data_ptr(), out_idx.data_ptr())
+    return out_lanes, out_lens, out_idx, splits, tile
+
+
+def merge_path_pair(a_lanes: torch.Tensor, a_lens: torch.Tensor,
+                    a_idx: torch.Tensor, b_lanes: torch.Tensor,
+                    b_lens: torch.Tensor, b_idx: torch.Tensor):
+    """Merge two runs sorted under the composite comparator, equal keys A
+    first.  Lanes int32[na, W] / int32[nb, W], sort lengths int32[na] /
+    int32[nb] (u32 bits), idx int32[na] / int32[nb]; returns the merged
+    (lanes int32[na+nb, W], lengths, idx)."""
+    dev = a_lanes.device
+    for name, t, ndim in (("a_lanes", a_lanes, 2), ("a_lens", a_lens, 1),
+                          ("a_idx", a_idx, 1), ("b_lanes", b_lanes, 2),
+                          ("b_lens", b_lens, 1), ("b_idx", b_idx, 1)):
+        _check(name, t, torch.int32, ndim, dev)
+    na, nb = a_lanes.shape[0], b_lanes.shape[0]
+    if b_lanes.shape[1] != a_lanes.shape[1] or \
+            a_lens.shape[0] != na or a_idx.shape[0] != na or \
+            b_lens.shape[0] != nb or b_idx.shape[0] != nb:
+        raise ValueError("run shapes disagree")
+    if na + nb >= INT32_MAX:
+        raise ValueError("runs too long for int32 positions")
+    if not _on_cuda(a_lanes):
+        return _merge_path_plain(a_lanes, a_lens, a_idx, b_lanes, b_lens,
+                                 b_idx)
+    return _merge_path_launch(a_lanes, a_lens, a_idx, b_lanes, b_lens,
+                              b_idx)[:3]

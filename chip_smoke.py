@@ -11,10 +11,14 @@ Phases, each checked, none allowed to fail:
    every kernel under tez_tpu_torch/csrc, all sources at once;
 2. each kernel against its plain PyTorch version on the card, bit-exact,
    at the slice's shapes, with its time, the plain version's time, its
-   memory-bound time and a yardstick: torch.searchsorted for merge rank,
-   a stable torch.sort of packed keys for the merge-path pair, which is
-   also timed against the composite it replaced on the main path (two
-   merge-rank launches and a scatter);
+   memory-bound time and a yardstick computing the same function on these
+   inputs, its answer checked before it is timed: torch.searchsorted over
+   an exact int64 packing of the rows for merge rank (random queries,
+   sorted queries at the map pair and the reduce rung with the slice's own
+   keys too, an all-equal run, sparse sorted queries), a stable torch.sort
+   of the same packing for the merge-path pair, which is also timed
+   against the composite it replaced on the main path (two merge-rank
+   launches and a scatter);
 3. map side: 4 producers, each a DeviceSorter(num_partitions=4,
    key_width=12, 256 MB spans) fed two full spans of bench-style records
    (12-byte Zipf(1.3) keys "w" + 11 digits over a 50k vocabulary, 8-byte
@@ -33,13 +37,14 @@ and the general-query merge rank, which the main path no longer calls, not
 at all.  The last two lines are one JSON object of per-kernel numbers and
 {"ok": true, "device": {...}}.  Without a card the script exits non-zero
 before printing any result.  --tile-sweep also times the merge-path
-kernel at other CTA shapes.
+kernel at other CTA shapes and splits both kernels' time by launch.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -166,6 +171,111 @@ MAIN_PATH_COUNTERPARTS = (
 TILE_SHAPES = ((128, 4, 0), (128, 8, 0), (128, 16, 0), (128, 15, 0),
                (256, 4, 0), (256, 8, 0), (64, 16, 0), (128, 16, 1),
                (128, 16, 8), (128, 8, 1), (128, 8, 8))
+#: the exact key of a pad sentinel row (lanes and length 0xFFFFFFFF)
+SENTINEL_KEY = np.iinfo(np.int64).max
+
+
+# Rows of phase 2's merge inputs come as (lanes uint32[n, W], lengths
+# uint32[n], exact key int64[n]): the key orders the rows as the
+# comparator does, so a library call on it computes the kernel's function.
+def small_key(lanes: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """3 bits a lane and 5 for the length (rows of sorted_run), the
+    sentinel mapped to the top."""
+    key = lens.astype(np.int64)
+    for i in range(lanes.shape[1]):
+        key |= lanes[:, i].astype(np.int64) << \
+            (5 + 3 * (lanes.shape[1] - 1 - i))
+    return np.where(lens == 0xFFFFFFFF, SENTINEL_KEY, key)
+
+
+def sorted_run(rng, m: int, width: int, lane_values: int = 8) -> tuple:
+    """m sorted rows whose lanes draw from lane_values values, so equal
+    keys are common, ending in pad sentinels as a bucketed run does."""
+    run = rng.integers(0, lane_values, (m, width)).astype(np.uint32)
+    run_len = rng.integers(0, 17, m).astype(np.uint32)
+    order = np.argsort(small_key(run, run_len), kind="stable")
+    run, run_len = run[order], run_len[order]
+    run[-(m // 64):] = 0xFFFFFFFF
+    run_len[-(m // 64):] = 0xFFFFFFFF
+    return run, run_len, small_key(run, run_len)
+
+
+def bench_run(rng, m: int, partition_lane: bool) -> tuple:
+    """m sorted rows of the slice's own keys: bench records' 12-byte keys
+    as 3 big-endian lanes, length 12, optionally behind the partition lane
+    of the generic merge; their exact key is (partition, rank in the
+    vocabulary)."""
+    vocab = bench_vocab()
+    vlanes = be_lanes(vocab)
+    vpart, _ = vocab_rank(vocab, np.full(BENCH_VOCAB, 12))
+    vrank = np.empty(BENCH_VOCAB, np.int64)
+    vrank[np.lexsort(tuple(vlanes[:, i] for i in range(2, -1, -1)))] = \
+        np.arange(BENCH_VOCAB)
+    ids = rng.zipf(ZIPF_A, m) % BENCH_VOCAB
+    key = (vpart[ids] << 20 if partition_lane else 0) | vrank[ids]
+    order = np.argsort(key, kind="stable")
+    ids, key = ids[order], key[order]
+    lanes = vlanes[ids]
+    if partition_lane:
+        lanes = np.concatenate(
+            [vpart[ids].astype(np.uint32)[:, None], lanes], axis=1)
+    lens = np.full(m, 12, np.uint32)
+    lanes[-(m // 64):] = 0xFFFFFFFF
+    lens[-(m // 64):] = 0xFFFFFFFF
+    key[-(m // 64):] = SENTINEL_KEY
+    return lanes, lens, key
+
+
+def random_queries(rng, run: tuple, m: int, width: int) -> tuple:
+    """Random rows, half of them copies of run rows (sentinels too)."""
+    q = rng.integers(0, 8, (m, width)).astype(np.uint32)
+    q_len = rng.integers(0, 17, m).astype(np.uint32)
+    pick = rng.integers(0, run[0].shape[0], m // 2)
+    q[:m // 2], q_len[:m // 2] = run[0][pick], run[1][pick]
+    return q, q_len, small_key(q, q_len)
+
+
+def merge_rank_inputs(rng):
+    """Phase 2's merge-rank cases, one at a time: (label, run, queries,
+    main_row); main_row marks the JSON row's case."""
+    # random queries (the JSON row: W = 3, count_equal False)
+    for width in (3, 4):
+        run = sorted_run(rng, 1 << 21, width)
+        yield ("random", run, random_queries(rng, run, 1 << 21, width),
+               width == 3)
+    # sorted queries, as tez_tpu's only caller passes them: the map-side
+    # resident pair (2^21 a side, W = 3) and a reduce rung (2^24, W = 4,
+    # the partition lane first for the slice's keys)
+    yield ("sorted map pair", sorted_run(rng, 1 << 21, 3),
+           sorted_run(rng, 1 << 21, 3), False)
+    yield ("sorted map pair bench keys", bench_run(rng, 1 << 21, False),
+           bench_run(rng, 1 << 21, False), False)
+    yield ("sorted reduce rung", sorted_run(rng, 1 << 24, 4),
+           sorted_run(rng, 1 << 24, 4), False)
+    yield ("sorted reduce rung bench keys", bench_run(rng, 1 << 24, True),
+           bench_run(rng, 1 << 24, True), False)
+    # windows too wide for shared memory: an all-equal run against sorted
+    # queries around its key, and sorted queries 64 times sparser than the
+    # run
+    eq = np.full(((1 << 21) - (1 << 15), 3), 3, np.uint32)
+    eq_run = (np.concatenate([eq, np.full((1 << 15, 3), 0xFFFFFFFF,
+                                          np.uint32)]),
+              np.concatenate([np.full(eq.shape[0], 8, np.uint32),
+                              np.full(1 << 15, 0xFFFFFFFF, np.uint32)]))
+    yield ("all-equal run", eq_run + (small_key(*eq_run),),
+           sorted_run(rng, 1 << 21, 3, 5), False)
+    yield ("sparse sorted queries", sorted_run(rng, 1 << 24, 4),
+           sorted_run(rng, 1 << 18, 4), False)
+
+
+def rank_tensors(run: tuple, query: tuple, dev) -> tuple:
+    """A merge-rank case on the card: the kernel's four int32 inputs (u32
+    bits), and the run's and the queries' exact keys."""
+    import torch
+    t = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+         for a in (run[0], run[1], query[0], query[1])]
+    return (t, torch.from_numpy(run[2]).to(dev),
+            torch.from_numpy(query[2]).to(dev))
 
 
 def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
@@ -174,6 +284,20 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     rows: dict = {}
+
+    def profile_launches(label, fn):
+        """Device time of each kernel a call launches (profiler)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                log(f"tile sweep {label}: device op {e.key[:60]} "
+                    f"count={e.count} ms_each="
+                    f"{e.self_device_time_total / e.count / 1e3:.4f}")
 
     def bound_ms(nbytes: int) -> float:
         return nbytes / (bw_tb_s * 1e12) * 1e3
@@ -237,71 +361,61 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
         n * 12 + 4 * n + 4 * n, shape=f"N={n} L=3")
     del lanes
 
-    # merge rank: W = 3 and 4 at 2^21 rows with random queries, both
-    # flavours, then one rung of the reduce-side ladder (2^24 rows each
-    # side, W = 4, the queries a second sorted run).  Lanes draw from 8
-    # values so equal keys are common; each run ends in pad sentinels
-    # (lanes and length 0xFFFFFFFF) as a bucketed run does.
+    # merge rank, each case against the plain version and the exact key's
+    # torch.searchsorted
     rng = np.random.default_rng(seed)
 
-    def sorted_run(m, width):
-        run = rng.integers(0, 8, (m, width)).astype(np.uint32)
-        run_len = rng.integers(0, 17, m).astype(np.uint32)
-        # 3 bits a lane and 5 for the length: one composite key orders the
-        # rows as the comparator does
-        key = run_len.astype(np.int64)
-        for i in range(width):
-            key |= run[:, i].astype(np.int64) << (5 + 3 * (width - 1 - i))
-        order = np.argsort(key)
-        run, run_len = run[order], run_len[order]
-        run[-(m // 64):] = 0xFFFFFFFF
-        run_len[-(m // 64):] = 0xFFFFFFFF
-        return run, run_len
-
-    for m, width, sorted_queries in ((1 << 21, 3, False), (1 << 21, 4, False),
-                                     (1 << 24, 4, True)):
-        run, run_len = sorted_run(m, width)
-        if sorted_queries:
-            q, q_len = sorted_run(m, width)
-        else:
-            q = rng.integers(0, 8, (m, width)).astype(np.uint32)
-            q_len = rng.integers(0, 17, m).astype(np.uint32)
-            half = m // 2          # half the queries are copies of run rows
-            pick = rng.integers(0, m, half)
-            q[:half], q_len[:half] = run[pick], run_len[pick]
-        t = [torch.from_numpy(a.view(np.int32)).to(dev)
-             for a in (run, run_len, q, q_len)]
-        # yardstick: one searchsorted over one lane packed with the length
-        packed_run = torch.sort((t[0][:, 0].to(torch.int64) & 0xFFFFFFFF)
-                                << 32 | (t[1].to(torch.int64) & 0xFFFFFFFF)
-                                ).values
-        packed_q = (t[2][:, 0].to(torch.int64) & 0xFFFFFFFF) << 32 | \
-            (t[3].to(torch.int64) & 0xFFFFFFFF)
-        for count_equal in ((False,) if sorted_queries else (False, True)):
+    def merge_rank_case(label, run, query, main_row):
+        t, packed_run, packed_q = rank_tensors(run, query, dev)
+        n, width, m = t[0].shape[0], t[0].shape[1], t[2].shape[0]
+        check(bool((packed_run[1:] >= packed_run[:-1]).all()),
+              f"merge_rank {label}: run not sorted")
+        # run rows the bound counts: all N when M = N; fewer queries need
+        # only about M log2(N / M + 1) of them (the comparisons a merge of
+        # M sorted rows into N needs)
+        run_rows = min(n, math.ceil(m * math.log2(n / m + 1))) if m else 0
+        for count_equal in (False, True):
+            shape = f"{label} N={n} M={m} W={width} count_equal={count_equal}"
             got = kernels.merge_rank(*t, count_equal)
             want = kernels._rank_search(*t, count_equal)
-            lib_ms = cuda_ms(lambda: torch.searchsorted(
-                packed_run, packed_q, right=count_equal), 20)
+            _, windows, tile = kernels._merge_rank_launch(*t, count_equal)
+            check(torch.equal(windows, kernels.merge_rank_windows(
+                *t, count_equal, tile)),
+                f"merge_rank {shape}: windows differ from merge_rank_windows")
+            # the yardstick computes the same function: checked before timing
+            lib = torch.searchsorted(packed_run, packed_q, right=count_equal)
+            check(torch.equal(lib, want.to(torch.int64)),
+                  f"merge_rank {shape}: exact searchsorted disagrees")
             row = record(
                 "merge_rank", "tez_tpu_torch/csrc/merge_rank.cu",
                 "tez_tpu/ops/pallas_kernels.py:76", got, want,
                 cuda_ms(lambda: kernels.merge_rank(*t, count_equal), 20),
                 cuda_ms(lambda: kernels._rank_search(*t, count_equal), 3),
-                2 * m * (width + 1) * 4 + 4 * m, library_ms=lib_ms,
-                shape=f"N=M={m} W={width} count_equal={count_equal} "
-                      f"{'sorted' if sorted_queries else 'random'} queries")
-            # the resident merge ranks W=3 lanes in 2^21-row buckets
-            if width == 3 and not count_equal:
+                (run_rows + m) * (width + 1) * 4 + 4 * m,
+                library_ms=cuda_ms(lambda: torch.searchsorted(
+                    packed_run, packed_q, right=count_equal), 20),
+                shape=shape)
+            log(f"kernel merge_rank {shape}: tiles={windows.shape[1]} "
+                f"sorted_tiles={int(windows[2].sum())} "
+                f"window_rows_max={int((windows[1] - windows[0]).max())} "
+                f"library=exact 64-bit packing, torch.searchsorted")
+            if tile_sweep:
+                profile_launches(f"merge_rank {label} count_equal="
+                                 f"{count_equal}", lambda: kernels.merge_rank(
+                                     *t, count_equal))
+            if main_row and not count_equal:
                 rows["merge_rank"] = row
-        del t, packed_run, packed_q
+
+    for label, run, query, main_row in merge_rank_inputs(rng):
+        merge_rank_case(label, run, query, main_row)
 
     # merge-path pair: the map side's resident pair (2^21 a side, W = 3),
     # one rung of the reduce ladder (2^24 a side, W = 4), the ladder's odd
     # carry (na = 2 nb) and a row wider than the templated flavours
     # (W = 9).  idx is the int32 row index of the concatenation.
     def merge_path_case(na, nb, width, label, main_row):
-        a, a_len = sorted_run(na, width)
-        b, b_len = sorted_run(nb, width)
+        a, a_len, a_key = sorted_run(rng, na, width)
+        b, b_len, b_key = sorted_run(rng, nb, width)
         t = [torch.from_numpy(x.view(np.int32)).to(dev)
              for x in (a, a_len, np.arange(na, dtype=np.uint32),
                        b, b_len, np.arange(na, na + nb, dtype=np.uint32))]
@@ -311,12 +425,12 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
         # arange + rank, six index_copy_
         before = kernels._merge_path_plain(*t, rank=kernels.merge_rank)
         check(max_err(before, want) == 0, f"merge-path composite {label}")
-        # yardstick: one stable sort of the concatenation, lane 0 packed
-        # with the length into one int64 key (as the merge-rank row packs)
-        packed = torch.cat([(t[0][:, 0].to(torch.int64) & 0xFFFFFFFF) << 32
-                            | (t[1].to(torch.int64) & 0xFFFFFFFF),
-                            (t[3][:, 0].to(torch.int64) & 0xFFFFFFFF) << 32
-                            | (t[4].to(torch.int64) & 0xFFFFFFFF)])
+        # yardstick: one stable sort of the concatenation under the exact
+        # int64 key; its permutation must be the merge's idx column
+        packed = torch.from_numpy(np.concatenate([a_key, b_key])).to(dev)
+        check(torch.equal(torch.sort(packed, stable=True).indices,
+                          got[2].to(torch.int64)),
+              f"merge_path_pair {label}: exact stable sort disagrees")
         row = record(
             "merge_path_pair", "tez_tpu_torch/csrc/merge_path.cu",
             "tez_tpu/ops/pallas_kernels.py:76", got, want,
@@ -341,17 +455,7 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
                              20)
                 log(f"tile sweep {label}: threads={threads} rows_per_thread="
                     f"{per_thread} group={group} tile={out[4]} ms={ms:.4f}")
-            from torch.autograd import DeviceType
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    kernels.merge_path_pair(*t)
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                if e.device_type == DeviceType.CUDA:
-                    log(f"tile sweep {label}: device op {e.key[:60]} "
-                        f"count={e.count} ms_each="
-                        f"{e.self_device_time_total / e.count / 1e3:.4f}")
+            profile_launches(label, lambda: kernels.merge_path_pair(*t))
         if main_row:
             rows["merge_path_pair"] = row
 

@@ -56,24 +56,221 @@ def test_fnv_lanes_kernel(cuda, num_lanes):
         _t(lanes), _t(lengths), 5))
 
 
-@pytest.mark.parametrize("w", [1, 3, 4, 8, 9])
-def test_merge_rank_kernel(cuda, w):
-    """W <= 8 uses the register flavours, W = 9 the generic one."""
-    rng = np.random.default_rng(w)
-    run = rng.integers(0, 4, (3000, w)).astype(np.uint32)
-    run_len = rng.integers(1, 9, 3000).astype(np.uint32)
-    run[-7:] = 0xFFFFFFFF
-    run_len[-7:] = 0xFFFFFFFF
-    order = np.lexsort((run_len,) + tuple(run[:, i]
-                                          for i in range(w - 1, -1, -1)))
-    run, run_len = run[order], run_len[order]
-    q = rng.integers(0, 4, (2001, w)).astype(np.uint32)
-    q_len = rng.integers(1, 9, 2001).astype(np.uint32)
-    q[:500], q_len[:500] = run[:500], run_len[:500]
-    host = [_t(a) for a in (run, run_len, q, q_len)]
+def _rank_inputs(seed, n, m, w, kind, vals=4, offset=0):
+    """Host int32 tensors (run lanes, run lengths, query lanes, query
+    lengths): a sorted run with a sentinel tail and m queries, a third of
+    them copies of run rows.  kind: "sorted", "unsorted" (shuffled) or
+    "mixed" (sorted, with a shuffled stretch whose ends fall inside tiles).
+    offset > 0 starts every tensor `offset` rows into a larger one (off a
+    16-byte boundary)."""
+    rng = np.random.default_rng(seed)
+
+    def sorted_rows(k):
+        lanes = rng.integers(0, vals, (k, w)).astype(np.uint32)
+        lens = rng.integers(1, 9, k).astype(np.uint32)
+        order = np.lexsort((lens,) + tuple(lanes[:, i]
+                                           for i in range(w - 1, -1, -1)))
+        return lanes[order], lens[order]
+
+    run, run_len = sorted_rows(n)
+    run[n - n // 100:], run_len[n - n // 100:] = 0xFFFFFFFF, 0xFFFFFFFF
+    q, q_len = sorted_rows(m)
+    if n:
+        pick = np.sort(rng.integers(0, n, m // 3))
+        q[:m // 3], q_len[:m // 3] = run[pick], run_len[pick]
+    order = np.lexsort((q_len,) + tuple(q[:, i] for i in range(w - 1, -1, -1)))
+    q, q_len = q[order], q_len[order]
+    if kind == "unsorted":
+        perm = rng.permutation(m)
+        q, q_len = q[perm], q_len[perm]
+    elif kind == "mixed":
+        lo, hi = m // 5 + 3, (3 * m) // 5 + 1
+        perm = lo + rng.permutation(hi - lo)
+        q[lo:hi], q_len[lo:hi] = q[perm], q_len[perm]
+    out = []
+    for a in (run, run_len, q, q_len):
+        pad = np.zeros((offset,) + a.shape[1:], a.dtype)
+        out.append(_t(np.concatenate([pad, a]))[offset:])
+    return out
+
+
+def _check_merge_rank(cuda, host):
+    """The wrapper's ranks on the card == the plain version's (on the CPU)
+    for both flavours, and the kernel's windows == merge_rank_windows."""
+    dev = [t.to(cuda) for t in host]
     for count_equal in (False, True):
-        got = kernels.merge_rank(*[a.to(cuda) for a in host], count_equal)
-        assert torch.equal(got.cpu(), kernels.merge_rank(*host, count_equal))
+        want = kernels.merge_rank(*host, count_equal)
+        assert torch.equal(kernels.merge_rank(*dev, count_equal).cpu(), want)
+        got, windows, tile = kernels._merge_rank_launch(*dev, count_equal)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(windows.cpu(), kernels.merge_rank_windows(
+            *host, count_equal, tile))
+    return windows, tile
+
+
+@pytest.mark.parametrize("kind", ["random", "sorted", "mixed"])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 9])
+def test_merge_rank_kernel(cuda, w, kind):
+    """W <= 8 uses the register flavours, W = 9 the generic one; sorted
+    tiles rank in their shared-memory window, the others against the
+    splitter table."""
+    host = _rank_inputs(w, 3000, 5001, w,
+                        "unsorted" if kind == "random" else kind)
+    windows, _ = _check_merge_rank(cuda, host)
+    assert windows[2].all() == (kind == "sorted")
+    kernels.reset_launches()
+    got = kernels.merge_rank(*[t.to(cuda) for t in host], True)
+    assert kernels.launches["merge_rank"] == 1
+    assert torch.equal(got.cpu(), kernels._rank_search(*host, True))
+
+
+@pytest.mark.parametrize("w", [3, 9])
+def test_merge_rank_kernel_windows_wider_than_shared_memory(cuda, w):
+    """Sorted queries whose windows do not fit the shared-memory region:
+    an all-equal run (rows below, at and above its key) and a run 256
+    times longer than the queries.  Both go through the splitter table
+    narrowed to [lo, hi]."""
+    run, run_len, q, q_len = _rank_inputs(w, 300000, 4000, w, "sorted",
+                                          vals=3)
+    run[:] = 1
+    run_len[:] = 4
+    # no query equals the run's key: the tile that crosses it has a window
+    # of the whole run
+    q_len[(q == 1).all(dim=1) & (q_len == 4)] = 5
+    windows, _ = _check_merge_rank(cuda, (run, run_len, q, q_len))
+    assert windows[2].all()
+    assert int((windows[1] - windows[0]).max()) > 50000
+    windows, _ = _check_merge_rank(
+        cuda, _rank_inputs(w + 1, 1 << 20, 4096, w, "sorted", vals=16))
+    assert int((windows[1] - windows[0]).min()) > 50000
+
+
+def test_merge_rank_kernel_tiles_straddle_order_boundary(cuda):
+    """A shuffled stretch starting and ending inside tiles: the tiles
+    around each end are out of order, the rest in order.  Then stretches
+    of 3,589 rows, sorted and shuffled by turns, over more tiles than the
+    grid has CTAs, so the tiles one CTA walks take the splitter table and
+    the staged window by turns (a window staged over the table drops it;
+    the table is staged again after it)."""
+    host = _rank_inputs(5, 20000, 40000, 3, "mixed")
+    windows, tile = _check_merge_rank(cuda, host)
+    flags = windows[2].tolist()
+    assert 0 in flags and 1 in flags
+    assert 40000 % tile and (40000 // 5 + 3) % tile
+    m, stripe = (1 << 20) - 333, 3589
+    run, run_len, q, q_len = _rank_inputs(6, 20000, m, 3, "sorted")
+    rng = np.random.default_rng(6)
+    for lo in range(stripe, m, 2 * stripe):
+        hi = min(lo + stripe, m)
+        perm = torch.from_numpy(lo + rng.permutation(hi - lo))
+        q[lo:hi], q_len[lo:hi] = q[perm], q_len[perm]
+    windows, tile = _check_merge_rank(cuda, (run, run_len, q, q_len))
+    sorted_tiles = int(windows[2].sum())
+    props = torch.cuda.get_device_properties(cuda)
+    assert windows.shape[1] > 4 * props.multi_processor_count
+    assert 0.2 < sorted_tiles / windows.shape[1] < 0.8
+
+
+@pytest.mark.parametrize("w", [3, 4, 9])
+def test_merge_rank_kernel_unaligned_inputs(cuda, w):
+    """Every input starts 3 rows into its buffer: off a 16-byte boundary."""
+    for kind in ("sorted", "unsorted"):
+        host = _rank_inputs(w, 7001, 6003, w, kind, offset=3)
+        assert host[1].data_ptr() % 16 and host[3].data_ptr() % 16
+        _check_merge_rank(cuda, host)
+
+
+def test_merge_rank_kernel_wide_rows_cut_the_tile(cuda):
+    """Rows of 200 lanes: the shared-memory region holds ~100 rows, so
+    the tile shrinks to keep windows fitting twice, and the ranks are
+    still exact."""
+    host = _rank_inputs(200, 3000, 2500, 200, "mixed", vals=2)
+    _, tile = _check_merge_rank(cuda, host)
+    assert tile < 1024
+
+
+def test_merge_rank_kernel_million_rows(cuda):
+    """2^20 rows and queries, sorted and random; the plain version runs
+    on the card (the host would take minutes)."""
+    for kind in ("sorted", "unsorted"):
+        dev = [t.to(cuda) for t in _rank_inputs(
+            11, 1 << 20, 1 << 20, 3, kind, vals=8)]
+        for count_equal in (False, True):
+            got, windows, tile = kernels._merge_rank_launch(*dev,
+                                                            count_equal)
+            assert torch.equal(got, kernels._rank_search(*dev, count_equal))
+            assert torch.equal(windows, kernels.merge_rank_windows(
+                *dev, count_equal, tile))
+
+
+def test_merge_rank_kernel_run_above_2_30_rows(cuda):
+    """A run of 5 * 2^28 rows (W = 1, 10.7 GB on the card) with queries
+    that rank in its top eighth, above 2^30, where the sum of two search
+    bounds passes INT32_MAX: shuffled queries (splitter table, then device
+    memory), sorted queries ~2,560 rows apart (windows too wide for shared
+    memory, searched in device memory) and sorted neighbours (staged
+    windows), each with sentinel queries; both flavours against the plain
+    version and the closed form of this run's ranks."""
+    n = 5 << 28
+    if torch.cuda.get_device_properties(cuda).total_memory < (24 << 30):
+        pytest.skip("needs 24 GB of device memory")
+    row = torch.arange(n, dtype=torch.int32, device=cuda)
+    run = (row >> 1).view(n, 1)    # run row 2i + j = (lane i, length j)
+    run_len = row & 1
+    del row
+    m, top = 1 << 16, n // 2
+    g = torch.Generator(device=cuda).manual_seed(0)
+    spread = top - 1 - torch.randint(0, top // 8, (m,), generator=g,
+                                     device=cuda, dtype=torch.int32)
+    lens = torch.randint(0, 3, (m,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    key = torch.sort(spread.to(torch.int64) * 4 + lens).values
+    near = torch.arange(m, device=cuda, dtype=torch.int32)
+    sentinel = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+    cases = {
+        "shuffled": (spread, lens),
+        "sparse sorted": ((key // 4).to(torch.int32),
+                          (key % 4).to(torch.int32)),
+        "dense sorted": (top - m // 2 + near // 2, (near % 2) * 2),
+    }
+    try:
+        for kind, (q, q_len) in cases.items():
+            q = torch.cat([q, sentinel]).view(-1, 1)
+            q_len = torch.cat([q_len, sentinel])
+            for count_equal in (False, True):
+                got = kernels.merge_rank(run, run_len, q, q_len, count_equal)
+                want = kernels._rank_search(run, run_len, q, q_len,
+                                            count_equal)
+                assert torch.equal(got, want), kind
+                closed = 2 * q[:-64, 0].to(torch.int64) + \
+                    (q_len[:-64] + int(count_equal)).clamp(max=2)
+                assert torch.equal(want[:-64].to(torch.int64), closed), kind
+                assert bool((want[-64:] == n).all())
+                assert int(want[:-64].min()) > 1 << 30
+                _, windows, tile = kernels._merge_rank_launch(
+                    run, run_len, q, q_len, count_equal)
+                assert torch.equal(windows, kernels.merge_rank_windows(
+                    run, run_len, q, q_len, count_equal, tile))
+                wn = windows[1, :-1] - windows[0, :-1]
+                if kind == "shuffled":
+                    assert not bool(windows[2, :-1].any())
+                elif kind == "sparse sorted":
+                    assert bool(windows[2].all()) and int(wn.min()) > 1 << 20
+                else:
+                    assert bool(windows[2].all()) and int(wn.max()) < 4096
+    finally:
+        del run, run_len
+        torch.cuda.empty_cache()
+
+
+def test_merge_rank_kernel_empty_sides(cuda):
+    """An empty run ranks every query 0; no queries launch nothing."""
+    run, run_len, q, q_len = _rank_inputs(1, 0, 777, 3, "unsorted")
+    _check_merge_rank(cuda, (run, run_len, q, q_len))
+    kernels.reset_launches()
+    out = kernels.merge_rank(run.to(cuda), run_len.to(cuda),
+                             q[:0].to(cuda), q_len[:0].to(cuda), False)
+    assert out.shape == (0,) and kernels.launches["merge_rank"] == 0
 
 
 def _merge_pair(seed, na, nb, w, ties=3, sentinels=(0, 0), offset=0):

@@ -134,6 +134,121 @@ def test_merge_rank_plain_matches_rank_search_any_shape(n, m):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _queries(rng, kind, run, run_len, m, w, vals=4):
+    """m query rows: "sorted" (a sorted draw, with run copies and sentinel
+    tails), "unsorted" (the same rows shuffled) or "mixed" (sorted, with
+    a shuffled stretch whose ends fall inside tiles)."""
+    q = rng.integers(0, vals, (m, w)).astype(np.uint32)
+    q_len = rng.integers(1, 9, m).astype(np.uint32)
+    if run.shape[0]:
+        pick = rng.integers(0, run.shape[0], m // 3)
+        q[:m // 3], q_len[:m // 3] = run[pick], run_len[pick]
+    q[-3:], q_len[-3:] = 0xFFFFFFFF, 0xFFFFFFFF
+    order = np.lexsort((q_len,) + tuple(q[:, i] for i in range(w - 1, -1, -1)))
+    q, q_len = q[order], q_len[order]
+    if kind == "unsorted":
+        perm = rng.permutation(m)
+        q, q_len = q[perm], q_len[perm]
+    elif kind == "mixed":
+        lo, hi = m // 5 + 3, (3 * m) // 5 + 1
+        perm = lo + rng.permutation(hi - lo)
+        q[lo:hi], q_len[lo:hi] = q[perm], q_len[perm]
+    return q, q_len
+
+
+def _in_order(q, q_len, tile):
+    """Per tile: every adjacent pair q[i] <= q[i+1] (numpy)."""
+    m = q.shape[0]
+    keys = [tuple(r) + (l,) for r, l in zip(q.tolist(), q_len.tolist())]
+    return np.array([all(keys[i] <= keys[i + 1]
+                         for i in range(t, min(t + tile, m) - 1))
+                     for t in range(0, m, tile)], dtype=np.int32)
+
+
+@pytest.mark.parametrize("count_equal", [False, True])
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "mixed"])
+@pytest.mark.parametrize("w", [1, 3, 4, 9])
+def test_merge_rank_windows_match_tez_tpu(w, kind, count_equal):
+    """merge_rank_windows: lo and hi are the ranks of each tile's first and
+    last query under merge_rank_pallas (interpret mode) and tez_tpu's
+    _rank_search; the in-order flag agrees with a numpy check."""
+    rng = np.random.default_rng(w * 10 + len(kind))
+    n, m, tile = 301, 2 * MERGE_ROW_BLOCK, 64
+    run, run_len = _sorted_run(rng, n, w)
+    q, q_len = _queries(rng, kind, run, run_len, m, w)
+    ranks = np.asarray(merge_rank_pallas(
+        jnp.asarray(run), jnp.asarray(run_len), jnp.asarray(q),
+        jnp.asarray(q_len), count_equal=count_equal, interpret=True))
+    firsts = np.arange(0, m, tile)
+    lasts = np.minimum(firsts + tile, m) - 1
+    xla = np.asarray(jdevice._rank_search(
+        jnp.asarray(run), jnp.asarray(run_len),
+        jnp.asarray(np.concatenate([q[firsts], q[lasts]])),
+        jnp.asarray(np.concatenate([q_len[firsts], q_len[lasts]])),
+        count_equal))
+    got = kernels.merge_rank_windows(_t(run), _t(run_len), _t(q), _t(q_len),
+                                     count_equal, tile).numpy()
+    np.testing.assert_array_equal(got[0], ranks[firsts])
+    np.testing.assert_array_equal(got[1], ranks[lasts])
+    np.testing.assert_array_equal(np.concatenate([got[0], got[1]]), xla)
+    np.testing.assert_array_equal(got[2], _in_order(q, q_len, tile))
+    if kind == "sorted":
+        assert got[2].all()
+    else:
+        assert not got[2].all() and got[2].any() == (kind == "mixed")
+
+
+#: (run rows, query rows, tile, lane values of the run): an empty run, M not
+#: a multiple of the tile, M below one tile, one-row tiles, all-equal runs
+_WINDOW_EDGES = {
+    "empty_run": (0, 100, 32, 4),
+    "ragged_last_tile": (150, 333, 64, 4),
+    "one_partial_tile": (80, 20, 64, 4),
+    "tile_of_one": (40, 17, 1, 4),
+    "all_equal_run": (200, 256, 32, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WINDOW_EDGES))
+@pytest.mark.parametrize("w", [1, 3, 4, 9])
+def test_merge_rank_windows_edges(w, case):
+    """Edge shapes against tez_tpu's _rank_search at each tile's first and
+    last query, sentinel tails in run and queries."""
+    n, m, tile, vals = _WINDOW_EDGES[case]
+    rng = np.random.default_rng(n + m + w)
+    run, run_len = _sorted_run(rng, max(n, 8), w, vals)
+    run, run_len = run[:n], run_len[:n]
+    if vals == 1:                       # every row the same key
+        run[:], run_len[:] = 0, 4
+    q, q_len = _queries(rng, "mixed", run, run_len, m, w, vals=2)
+    firsts = np.arange(0, m, tile)
+    lasts = np.minimum(firsts + tile, m) - 1
+    for count_equal in (False, True):
+        got = kernels.merge_rank_windows(_t(run), _t(run_len), _t(q),
+                                         _t(q_len), count_equal, tile)
+        assert got.dtype == torch.int32 and got.shape == (3, len(firsts))
+        if n == 0:
+            want = np.zeros(2 * len(firsts), np.int32)
+        else:
+            want = np.asarray(jdevice._rank_search(
+                jnp.asarray(run), jnp.asarray(run_len),
+                jnp.asarray(np.concatenate([q[firsts], q[lasts]])),
+                jnp.asarray(np.concatenate([q_len[firsts], q_len[lasts]])),
+                count_equal))
+        np.testing.assert_array_equal(got[:2].numpy().reshape(-1), want)
+        np.testing.assert_array_equal(got[2].numpy(),
+                                      _in_order(q, q_len, tile))
+
+
+def test_merge_rank_windows_empty_queries():
+    z = torch.zeros((0, 3), dtype=torch.int32)
+    run = torch.zeros((5, 3), dtype=torch.int32)
+    got = kernels.merge_rank_windows(run, torch.zeros(5, dtype=torch.int32),
+                                     z, torch.zeros(0, dtype=torch.int32),
+                                     True, 64)
+    assert got.shape == (3, 0) and got.dtype == torch.int32
+
+
 def test_wrappers_check_inputs():
     mat = torch.zeros((4, 8), dtype=torch.uint8)
     lens = torch.zeros(4, dtype=torch.int32)
@@ -171,6 +286,21 @@ def test_build_targets_are_content_addressed():
         assert src.endswith(f"csrc/{name}.cu")
         assert lib.startswith(_build.BUILD_DIR)
         assert _build._target(name) == (src, lib)
+
+
+def test_build_targets_follow_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header gives every kernel a new library name,
+    so a stale build is never loaded."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", str(src))
+    headers = sorted(src.glob("*.cuh"))
+    assert headers, "the kernels share at least one header"
+    before = {name: _build._target(name)[1] for name in _build.KERNELS}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {name: _build._target(name)[1] for name in _build.KERNELS}
+    assert all(before[k] != after[k] for k in _build.KERNELS)
 
 
 # ---------------------------------------------------------------------------

@@ -126,3 +126,46 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_merge_rank_turns_loads_each_checkout_apart(tmp_path):
+    """merge_rank_turns.py loads another checkout's package beside this
+    one: each kernels module builds and binds through its own tree, and
+    the caller's modules are back in place afterwards.  Without a card the
+    script itself exits non-zero before timing anything."""
+    other = tmp_path / "other"
+    shutil.copytree(os.path.join(REPO, "tez_tpu_torch"),
+                    other / "tez_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np, torch
+        import chip_smoke, merge_rank_turns as mt
+        import tez_tpu_torch.ops.kernels as mine
+        trees = [mt.load_kernels({REPO!r}), mt.load_kernels({str(other)!r})]
+        assert sys.modules["tez_tpu_torch.ops.kernels"] is mine
+        rng = np.random.default_rng(0)
+        run = chip_smoke.sorted_run(rng, 3000, 3)
+        t, _, _ = chip_smoke.rank_tensors(
+            run, chip_smoke.random_queries(rng, run, 2000, 3), "cpu")
+        want = mine._rank_search(*t, True)
+        for root, (kernels, mods) in zip(({REPO!r}, {str(other)!r}), trees):
+            assert kernels.__file__.startswith(root)
+            with mt.installed(mods):
+                from tez_tpu_torch.ops import _build
+                assert _build.__file__.startswith(root)
+                assert torch.equal(kernels.merge_rank(*t, True), want)
+        assert trees[0][0] is not trees[1][0] is not mine
+        assert sys.modules["tez_tpu_torch.ops.kernels"] is mine
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, "merge_rank_turns.py",
+                              str(other)], cwd=REPO, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0
+        assert "merge_rank_turns" not in out.stdout

@@ -30,8 +30,8 @@
 //
 // Bound on this card: bytes.  Each input row is read once and each output row
 // written once, 2 * (na + nb) * (4W + 8) bytes; the splits array and the
-// comparisons are small beside that.  The kernel it succeeds (one binary
-// search per query in global memory, csrc/merge_rank.cu) is limited by L2
+// comparisons are small beside that.  Two cross ranks as one binary search
+// per query in global memory, which the ladder ran before, are limited by L2
 // sector traffic: every one of ~25 dependent probes of every query reads a
 // lane row.  Here only the tile boundaries search device memory; every other
 // comparison reads shared memory, and device memory sees one coalesced pass
@@ -39,10 +39,11 @@
 //   * the staging uses cp.async, so a thread's loads are all in flight at
 //     once instead of one load's latency per word;
 //   * shared memory holds the tile column by column (lane k of every row,
-//     then the lengths, then the indices) at a skewed row index.  Threads
-//     search and merge at rows about rows_per_thread / 2 apart; with rows
-//     stored whole (W words each) such a stride put a warp's 32 reads on a
-//     few banks, and shared memory, not device memory, limited the kernel;
+//     then the lengths, then the indices) at a skewed row index
+//     (staging.cuh).  Threads search and merge at rows about
+//     rows_per_thread / 2 apart; with rows stored whole (W words each) such
+//     a stride put a warp's 32 reads on a few banks, and shared memory, not
+//     device memory, limited the kernel;
 //   * when tile boundaries are few, `group` lanes search one boundary
 //     together, so the partition is a few memory round trips deep.
 //
@@ -55,6 +56,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "staging.cuh"
+
 namespace {
 
 constexpr int kPartitionThreads = 256;
@@ -66,20 +69,6 @@ constexpr int kDefaultSmem = 48 * 1024;
 // partition latency-bound; boundaries beyond which one lane searches each.
 constexpr int kWideGroup = 8;
 constexpr long long kWideGroupBoundaries = 8192;
-
-// Slot of row r in a staged column (and of output row r in the source list):
-// one extra word every 32 rows, so rows a power of two apart fall on
-// different banks.
-__host__ __device__ __forceinline__ int skew(int r) { return r + (r >> 5); }
-
-// Words per staged column of a tile: its skewed rows, padded so that
-// neighbouring columns start ceil(32 / W) banks apart (a warp's coalesced
-// staging and gathering touch ceil(32 / W) rows of each of W columns).
-__host__ __device__ __forceinline__ int column_pitch(int tile, int w) {
-  const int rows = skew(tile);
-  const int want = w > 0 ? (32 + w - 1) / w : 0;
-  return rows + (((want - rows) % 32) + 32) % 32;
-}
 
 // W lane columns, the length and the index column, then the source list.
 long long smem_bytes(int tile, int w) {
@@ -163,41 +152,6 @@ __global__ void partition_kernel(const uint32_t* __restrict__ a_lanes,
   if (valid && g == 0) splits[t] = static_cast<int32_t>(lo);
 }
 
-// Asynchronous 4-byte global -> shared copy: a thread issues all its copies
-// without waiting for any, so a CTA keeps its whole tile in flight.
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-// Rows [0, n) of a row-major global array of W lanes -> staged rows
-// [base, base + n), lane k into column k.
-template <int kW>
-__device__ __forceinline__ void stage_rows(uint32_t* cols, int pitch,
-                                           const uint32_t* g, int n,
-                                           int base, int w) {
-  const int lanes = kW > 0 ? kW : w;
-  for (int e = threadIdx.x; e < n * lanes; e += blockDim.x) {
-    const int r = e / lanes, k = e - r * lanes;
-    cp_async4(cols + k * pitch + skew(base + r), g + e);
-  }
-}
-
-__device__ __forceinline__ void stage_column(uint32_t* col, const uint32_t* g,
-                                             int n, int base) {
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    cp_async4(col + skew(base + r), g + r);
-  }
-}
-
-template <int kW>
-__device__ __forceinline__ void load_row(uint32_t* reg, const uint32_t* cols,
-                                         int pitch, int x) {
-#pragma unroll
-  for (int k = 0; k < kW; ++k) reg[k] = cols[k * pitch + skew(x)];
-}
-
 // Staged row x <= staged row y.
 template <int kW>
 __device__ __forceinline__ bool staged_le(const uint32_t* cols,
@@ -251,7 +205,7 @@ __global__ void merge_tile_kernel(const uint32_t* __restrict__ a_lanes,
   stage_column(lens, b_lens + j0, nB, nA);
   stage_column(idx, a_idx + i0, nA, 0);
   stage_column(idx, b_idx + j0, nB, nA);
-  asm volatile("cp.async.wait_all;\n" ::);
+  cp_async_wait_all();
   __syncthreads();
 
   // This thread's output rows [diag, end) of the tile: co-rank, then merge.

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by nvcc
 on first use into ``tez_tpu_torch/_build/lib<name>-<hash>.so``, then loaded
-with ctypes.  The file name carries a hash of the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded.  Nothing
+with ctypes.  The file name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+a stale library is never loaded.  Nothing
 here runs at import time: a host without nvcc can import the package.
 """
 from __future__ import annotations
@@ -39,8 +40,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(SRC_DIR, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the shared headers too: an edited header rebuilds every kernel
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(SRC_DIR, h) for h in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}-{digest.hexdigest()[:12]}.so")
 

@@ -11,7 +11,10 @@ kernels:
   serves the resident span sort (tez_tpu's ``_fnv_rows_from_lanes``).
 * ``merge_rank`` (``csrc/merge_rank.cu``) is the counterpart of
   ``merge_rank_pallas`` (pallas_kernels.py:76) and its contract: the rank of
-  every query row in a sorted run.
+  every query row in a sorted run.  The kernel cuts the queries into tiles
+  and first finds each tile's window (``merge_rank_windows`` is the plain
+  version of that step): a tile in order is ranked inside its window in
+  shared memory, any other against a shared-memory splitter table.
 * ``merge_path_pair`` (``csrc/merge_path.cu``) replaces what the main path
   did with ``merge_rank_pallas``: two cross ranks and the scatter of
   tez_tpu's ``_merge_path_pair`` (device.py:489), as one merge-path merge.
@@ -59,16 +62,18 @@ _ARGTYPES = {
                            ctypes.c_uint, _VP, _VP],
     "tez_fnv_hash_lanes": [_VP, _VP, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_uint, _VP, _VP],
+    "tez_merge_rank_tile": [ctypes.c_int],
     "tez_merge_rank": [_VP, _VP, ctypes.c_longlong, _VP, _VP,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP,
-                       _VP],
+                       _VP, _VP],
     "tez_merge_path_tile": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "tez_merge_path_pair": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _VP,
                             _VP],
 }
-_RESTYPES = {"tez_merge_path_tile": ctypes.c_longlong}
+_RESTYPES = {"tez_merge_path_tile": ctypes.c_longlong,
+             "tez_merge_rank_tile": ctypes.c_longlong}
 
 
 def reset_launches() -> None:
@@ -241,6 +246,52 @@ def _rank_search(run_lanes: torch.Tensor, run_lens: torch.Tensor,
     return lo.to(torch.int32)
 
 
+def merge_rank_windows(run_lanes: torch.Tensor, run_lens: torch.Tensor,
+                       q_lanes: torch.Tensor, q_lens: torch.Tensor,
+                       count_equal: bool, tile: int) -> torch.Tensor:
+    """Plain version of the merge-rank kernel's first step: for each tile of
+    `tile` consecutive query rows, the rank of its first query (row 0), of
+    its last (row 1), and whether its queries are in order, every adjacent
+    pair q[i] <= q[i+1] (row 2, 1 or 0).  int32[3, ceil(M / tile)]."""
+    m = q_lanes.shape[0]
+    dev = q_lanes.device
+    first = torch.arange(0, m, tile, device=dev)
+    last = (first + tile).clamp(max=m) - 1
+    ranks = _rank_search(run_lanes, run_lens,
+                         torch.cat([q_lanes[first], q_lanes[last]]),
+                         torch.cat([q_lens[first], q_lens[last]]),
+                         count_equal)
+    # adjacent pairs out of order, counted in the tile of their first row
+    out_of_order = _lex_lt(q_lanes[1:], q_lens[1:], q_lanes[:-1],
+                           q_lens[:-1])
+    pair = torch.arange(max(m - 1, 0), device=dev)
+    same_tile = (pair + 1) % tile != 0
+    bad = torch.zeros(first.shape[0], dtype=torch.int64, device=dev)
+    bad.index_add_(0, pair // tile, (out_of_order & same_tile)
+                   .to(torch.int64))
+    return torch.stack([ranks[:first.shape[0]], ranks[first.shape[0]:],
+                        (bad == 0).to(torch.int32)])
+
+
+def _merge_rank_launch(run_lanes, run_lens, q_lanes, q_lens, count_equal):
+    """Launch the merge-rank kernels on CUDA tensors; returns (ranks,
+    windows, tile) -- the windows as ``merge_rank_windows`` gives them, for
+    tests."""
+    n, w = run_lanes.shape
+    m, dev = q_lanes.shape[0], q_lanes.device
+    tile = _entry("merge_rank", "tez_merge_rank_tile")(w)
+    if tile <= 0:
+        raise ValueError(f"no merge-rank tile for rows of {w} lanes")
+    windows = torch.empty((3, -(-m // tile)), dtype=torch.int32, device=dev)
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    if m:
+        _launch("merge_rank", "merge_rank", "tez_merge_rank",
+                run_lanes.data_ptr(), run_lens.data_ptr(), n,
+                q_lanes.data_ptr(), q_lens.data_ptr(), m, w,
+                int(bool(count_equal)), windows.data_ptr(), out.data_ptr())
+    return out, windows, tile
+
+
 def merge_rank(run_lanes: torch.Tensor, run_lens: torch.Tensor,
                q_lanes: torch.Tensor, q_lens: torch.Tensor,
                count_equal: bool) -> torch.Tensor:
@@ -262,13 +313,8 @@ def merge_rank(run_lanes: torch.Tensor, run_lens: torch.Tensor,
     if not _on_cuda(run_lanes):
         return _rank_search(run_lanes, run_lens, q_lanes, q_lens,
                             count_equal)
-    out = torch.empty(m, dtype=torch.int32, device=dev)
-    if m:
-        _launch("merge_rank", "merge_rank", "tez_merge_rank",
-                run_lanes.data_ptr(), run_lens.data_ptr(), n,
-                q_lanes.data_ptr(), q_lens.data_ptr(), m, w,
-                int(bool(count_equal)), out.data_ptr())
-    return out
+    return _merge_rank_launch(run_lanes, run_lens, q_lanes, q_lens,
+                              count_equal)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -22,22 +22,38 @@ Phases, each checked, none allowed to fail:
 3. map side: 4 producers, each a DeviceSorter(num_partitions=4,
    key_width=12, 256 MB spans) fed two full spans of bench-style records
    (12-byte Zipf(1.3) keys "w" + 11 digits over a 50k vocabulary, 8-byte
-   values) and flushed;
-4. reduce side: merge_sorted_runs over the producers' runs, checked byte
-   for byte against a numpy golden (FNV partition + stable lexsort);
+   values) and flushed, synchronous spans;
+3b. the same batches through DeviceSorter(pipeline_depth=2), the async
+   span plane with the library's containment defaults: every flushed run
+   byte-identical to phase 3's, no failover, the breaker closed, two
+   spans in flight, each span's dispatch stage far shorter than its
+   dispatch -> readback wait; the stage histograms, PipelineStats and the
+   peak device memory are printed;
+4. reduce side: merge_sorted_runs over phase 3b's runs, checked byte for
+   byte against a numpy golden (FNV partition + stable lexsort);
 5. device_shuffle_sort over one producer's records, against the same
-   golden;
+   golden; 5b. the same records submitted in two spans to
+   DeviceSpanScheduler, coalesced into one dispatch, equal to phase 5;
 6. the combiner leg of OrderedWordCount: ragged 1-16 byte Zipf words with
-   value 1, the same producers with sum_long_combiner, the merge, a last
-   combine, every count checked against a collections.Counter golden.
+   value 1, the same producers with sum_long_combiner on the async plane
+   (the precombine counted: COMBINE_INPUT_RECORDS = the records,
+   COMBINE_OUTPUT_RECORDS = the distinct words of each span), the merge, a
+   last combine, every count checked against a collections.Counter golden;
+7. the containment ladder: 1 producer x 6 spans of 16 MB at
+   pipeline_depth=2, fault-free and under device.dispatch.delay,
+   device.dispatch.oom, device.readback.fail, device.dispatch.hang (a 60 s
+   hang against a 500 ms watchdog) and a breaker of 2 failures tripped by
+   two readback failures; every flush byte-identical to the fault-free
+   one, each with its DeviceFailover counters moved.
 
-Kernel launch counts are zeroed before phase 3 and read after phase 6:
-each TPU kernel's counterpart on the main path must have been launched,
-and the general-query merge rank, which the main path no longer calls, not
-at all.  The last two lines are one JSON object of per-kernel numbers and
-{"ok": true, "device": {...}}.  Without a card the script exits non-zero
-before printing any result.  --tile-sweep also times the merge-path
-kernel at other CTA shapes and splits both kernels' time by launch.
+Kernel launch counts are zeroed before each path of phases 3-6 and read
+after it: each TPU kernel's counterpart on the path must have been
+launched, and the general-query merge rank, which the main path no longer
+calls, not at all; the JSON line reports their sum over phases 3-6.  The
+last two lines are one JSON object of per-kernel numbers and {"ok": true,
+"device": {...}}.  Without a card the script exits non-zero before
+printing any result.  --tile-sweep also times the merge-path kernel at
+other CTA shapes and splits both kernels' time by launch.
 """
 from __future__ import annotations
 
@@ -492,10 +508,13 @@ def sync(device) -> None:
 
 class Phase:
     """Wall time of a phase, and the part spent in device-layer calls
-    (upload, kernels and sorts, readback; each call ends synchronised)."""
+    (upload, kernels and sorts, readback; each call ends synchronised).
+    split=False prints the wall time only: on the async plane the stages
+    overlap, so wall minus device-layer time means nothing."""
 
-    def __init__(self, name: str, nbytes: int, device):
+    def __init__(self, name: str, nbytes: int, device, split: bool = True):
         self.name, self.nbytes, self.device = name, nbytes, device
+        self.split = split
         self.extra_device_s = 0.0
 
     def __enter__(self):
@@ -507,11 +526,52 @@ class Phase:
         sync(self.device)
         if exc_type is None:
             wall = time.perf_counter() - self.t0
+            rate = (f"MB={self.nbytes / 1e6:.1f} "
+                    f"MB_per_s={self.nbytes / 1e6 / wall:.1f}")
+            if not self.split:
+                log(f"phase {self.name}: wall_s={wall:.3f} {rate}")
+                return False
             dev = (device_ms() - self.d0) / 1e3 + self.extra_device_s
             log(f"phase {self.name}: wall_s={wall:.3f} device_s={dev:.3f} "
-                f"host_s={wall - dev:.3f} MB={self.nbytes / 1e6:.1f} "
-                f"MB_per_s={self.nbytes / 1e6 / wall:.1f}")
+                f"host_s={wall - dev:.3f} {rate}")
         return False
+
+
+class Launches:
+    """Kernel launches of one path: the counts are zeroed just before it
+    runs and read just after; `totals` sums the paths of the slice."""
+
+    def __init__(self, name: str, totals: collections.Counter):
+        self.name, self.totals = name, totals
+
+    def __enter__(self):
+        from tez_tpu_torch.ops import kernels
+        kernels.reset_launches()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        from tez_tpu_torch.ops import kernels
+        self.counts = dict(kernels.launches)
+        if exc_type is None:
+            self.totals.update(self.counts)
+            log(f"launches {self.name}: {json.dumps(self.counts)}")
+        return False
+
+    def require(self, device, *names) -> None:
+        """On the card, each named kernel ran on this path and the general
+        merge rank did not."""
+        if not is_cuda(device):
+            return
+        for kname in names:
+            check(self.counts[kname] > 0,
+                  f"{self.name}: {kname} was never launched")
+        check(self.counts["merge_rank"] == 0,
+              f"{self.name}: launched merge_rank")
+
+
+def is_cuda(device) -> bool:
+    import torch
+    return torch.device(device).type == "cuda"
 
 
 def bench_batch(rng, vocab: np.ndarray, n: int):
@@ -563,15 +623,22 @@ def word_batch(rng, mat: np.ndarray, lens: np.ndarray, span_bytes: int):
 
 
 def produce(producer_batches, key_width: int, span_bytes: int,
-            combiner=None, device="cuda", **sorter_kw) -> list:
+            combiner=None, device="cuda", pipelines=None,
+            **sorter_kw) -> list:
     """Map side of the ordered edge: one DeviceSorter per producer, fed its
-    batches (each fills a span) and flushed.  Returns the producers' runs."""
+    batches (each fills a span) and flushed.  Returns the producers' runs.
+    With pipeline_depth > 0 in sorter_kw, each sorter's async pipeline is
+    instrumented and appended to `pipelines`."""
     from tez_tpu_torch.ops.sorter import DeviceSorter
     runs = []
     for batches in producer_batches:
         s = DeviceSorter(num_partitions=NUM_PARTITIONS, key_width=key_width,
                          span_budget_bytes=span_bytes, engine="device",
                          combiner=combiner, device=device, **sorter_kw)
+        if s.pipeline_depth > 0 and pipelines is not None:
+            pipe = s._ensure_pipeline()
+            pipe._instrument = True
+            pipelines.append(pipe)
         for batch in batches:
             s.write_batch(batch)
         check(s.num_spills == len(batches),
@@ -580,10 +647,83 @@ def produce(producer_batches, key_width: int, span_bytes: int,
     return runs
 
 
+def run_bytes(run) -> tuple:
+    b = run.batch
+    return (b.key_bytes.tobytes(), b.key_offsets.tobytes(),
+            b.val_bytes.tobytes(), b.val_offsets.tobytes(),
+            run.row_index.tobytes())
+
+
+STAGE_HISTOGRAMS = ("device.encode", "device.h2d", "device.dispatch_wait",
+                    "device.d2h")
+
+
+def histogram_totals() -> dict:
+    from tez_tpu_torch.common import metrics
+    hists = metrics.registry().histograms()
+    return {h: (hists[h].count, hists[h].sum_ms) if h in hists else (0, 0.0)
+            for h in STAGE_HISTOGRAMS}
+
+
+def failover_counters(counters) -> dict:
+    from tez_tpu_torch.ops.async_stage import COUNTER_GROUP
+    return dict(counters.to_dict().get(COUNTER_GROUP, {}))
+
+
+def check_fault_free(label: str, pipelines, counters_list) -> None:
+    """No hidden fallback: a fault-free async run took no failover, kept
+    the breaker closed and moved no containment counter."""
+    from tez_tpu_torch.ops.async_stage import process_breaker
+    for pipe in pipelines:
+        check(pipe.stats.failovers == 0 and pipe.stats.watchdog_fires == 0
+              and pipe.stats.oom_splits == 0,
+              f"{label}: fault-free run took the containment ladder "
+              f"{pipe.stats.to_dict()}")
+    for counters in counters_list:
+        moved = {k: v for k, v in failover_counters(counters).items() if v}
+        check(not moved, f"{label}: DeviceFailover counters moved {moved}")
+    check(process_breaker().state == "closed",
+          f"{label}: breaker {process_breaker().state}")
+
+
+def report_pipelines(label: str, pipelines, hist0: dict, device) -> None:
+    """Stage histograms (count, sum) of the phase, PipelineStats, and each
+    span's dispatch interval against its dispatch -> readback wait, from
+    the instrumented events: the dispatch stage enqueues and never waits
+    on the card, so it must be far shorter."""
+    hist1 = histogram_totals()
+    for h in STAGE_HISTOGRAMS:
+        log(f"{label}: histogram {h} count={hist1[h][0] - hist0[h][0]} "
+            f"sum_ms={hist1[h][1] - hist0[h][1]:.3f}")
+    for i, pipe in enumerate(pipelines):
+        st = pipe.stats
+        edges = {}
+        for ids, stage, edge, t in pipe.events:
+            edges[(ids, stage, edge)] = t
+        disp, waits = [], []
+        for ids in {e[0] for e in edges}:
+            d0 = edges.get((ids, "device.dispatch", "start"))
+            d1 = edges.get((ids, "device.dispatch", "end"))
+            r1 = edges.get((ids, "device.d2h", "end"))
+            if None not in (d0, d1, r1):
+                disp.append(d1 - d0)
+                waits.append(r1 - d0)
+        log(f"{label} producer {i}: max_in_flight={st.max_in_flight} "
+            f"coalesced_groups={st.coalesced_groups} dispatched="
+            f"{st.dispatched} dispatch_ms={[round(d * 1e3, 3) for d in disp]}"
+            f" dispatch_wait_ms={[round(w * 1e3, 3) for w in waits]}")
+        check(len(disp) == st.dispatched, f"{label}: missing stage events")
+        check(not is_cuda(device) or max(disp) < min(waits) / 4,
+              f"{label}: the dispatch stage is not far below the dispatch "
+              f"wait ({max(disp):.4f} s vs {min(waits):.4f} s)")
+
+
 def slice_phases(args, device="cuda") -> dict:
-    """Phases 3-6; returns the kernel launch counts of the run."""
-    from tez_tpu_torch.ops import kernels
-    from tez_tpu_torch.ops.device_pipeline import device_shuffle_sort
+    """Phases 3-6; returns the kernel launch counts of the slice."""
+    import torch
+    from tez_tpu_torch.common.counters import TaskCounter, TezCounters
+    from tez_tpu_torch.ops.device_pipeline import (DeviceSpanScheduler,
+                                                   device_shuffle_sort)
     from tez_tpu_torch.ops.sorter import merge_sorted_runs, sum_long_combiner
     span_bytes = int(args.span_mb * (1 << 20))
     rng = np.random.default_rng(args.seed)
@@ -596,18 +736,46 @@ def slice_phases(args, device="cuda") -> dict:
         producer_batches.append([b for b, _i, _v in spans])
         ids_list += [i for _b, i, _v in spans]
         vals_list += [v for _b, _i, v in spans]
-    kernels.reset_launches()
+    totals: collections.Counter = collections.Counter()
 
-    # -- phase 3: map side ---------------------------------------------------
+    # -- phase 3: map side, synchronous spans --------------------------------
     kv_bytes = args.producers * 2 * rec * 20
-    with Phase("map", kv_bytes, device):
-        runs = produce(producer_batches, 12, span_bytes, device=device)
-    del producer_batches
+    with Launches("map", totals) as ln, Phase("map", kv_bytes, device):
+        sync_runs = produce(producer_batches, 12, span_bytes, device=device)
+    ln.require(device, "fnv_hash_lanes", "merge_path_pair")
     log(f"map: {args.producers} producers x 2 spans x {rec} records")
 
-    # -- phase 4: reduce side ------------------------------------------------
-    with Phase("reduce", kv_bytes, device):
+    # -- phase 3b: map side on the async span plane (the library default) ----
+    if is_cuda(device):
+        torch.cuda.reset_peak_memory_stats()
+    pipelines, counters = [], TezCounters()
+    hist0 = histogram_totals()
+    with Launches("map_async", totals) as ln, \
+            Phase("map_async", kv_bytes, device, split=False):
+        runs = produce(producer_batches, 12, span_bytes, device=device,
+                       pipelines=pipelines, counters=counters,
+                       pipeline_depth=2)
+    ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+    del producer_batches
+    for i, (a, s) in enumerate(zip(runs, sync_runs)):
+        check(run_bytes(a) == run_bytes(s),
+              f"map_async: producer {i}'s run differs from the sync run")
+    del sync_runs
+    report_pipelines("map_async", pipelines, hist0, device)
+    check(not is_cuda(device) or
+          all(p.stats.max_in_flight == 2 for p in pipelines),
+          "map_async: max_in_flight is not 2")
+    check_fault_free("map_async", pipelines, [counters])
+    if is_cuda(device):
+        log(f"map_async: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"map_async: {args.producers} runs byte-identical to the sync "
+        f"runs, 0 failovers, breaker closed")
+
+    # -- phase 4: reduce side, over the async runs ---------------------------
+    with Launches("reduce", totals) as ln, Phase("reduce", kv_bytes, device):
         merged = merge_sorted_runs(runs, NUM_PARTITIONS, 12, device=device)
+    ln.require(device, "merge_path_pair")
     t0 = time.perf_counter()
     ids = np.concatenate(ids_list)
     vals = np.concatenate(vals_list)
@@ -627,55 +795,104 @@ def slice_phases(args, device="cuda") -> dict:
     del merged, runs, order, ids, vals
 
     # -- phase 5: fused device pipeline over one producer's records ----------
-    ids = np.concatenate(ids_list[:2])
-    vals = np.concatenate(vals_list[:2])
+    span_ids, span_vals = ids_list[:2], vals_list[:2]
+    ids = np.concatenate(span_ids)
+    vals = np.concatenate(span_vals)
     del ids_list, vals_list
     n = len(ids)
     keys = vocab[ids]
     lanes = be_lanes(keys)
     hmat = np.zeros((n, 16), dtype=np.uint8)
     hmat[:, :12] = keys
-    with Phase("fused_pipeline", n * 20, device) as ph:
+    with Launches("fused_pipeline", totals) as ln, \
+            Phase("fused_pipeline", n * 20, device) as ph:
         t_dev = time.perf_counter()
         sp, out_lanes, out_vals, perm, counts = device_shuffle_sort(
             lanes, np.full(n, 12, np.int64), vals.view(np.uint32),
             hmat, np.full(n, 12, np.int32), NUM_PARTITIONS, device=device)
         sync(device)
         ph.extra_device_s = time.perf_counter() - t_dev
+    ln.require(device, "fnv_hash_bytes")
+    golden = [t[:n].cpu().numpy() for t in (sp, out_lanes, out_vals, perm)] \
+        + [counts.cpu().numpy()]
     order = stable_order(rank[ids])
-    check(np.array_equal(perm[:n].cpu().numpy(), order), "pipeline: perm")
-    check(np.array_equal(out_lanes[:n].cpu().numpy().view(np.uint32),
-                         lanes[order]), "pipeline: sorted lanes")
-    check(np.array_equal(out_vals[:n].cpu().numpy().view(np.uint8),
-                         vals[order]), "pipeline: sorted values")
-    check(np.array_equal(sp[:n].cpu().numpy(), part[ids[order]]),
+    check(np.array_equal(golden[3], order), "pipeline: perm")
+    check(np.array_equal(golden[1].view(np.uint32), lanes[order]),
+          "pipeline: sorted lanes")
+    check(np.array_equal(golden[2].view(np.uint8), vals[order]),
+          "pipeline: sorted values")
+    check(np.array_equal(golden[0], part[ids[order]]),
           "pipeline: sorted partitions")
-    check(np.array_equal(counts.cpu().numpy(),
+    check(np.array_equal(golden[4],
                          np.bincount(part[ids], minlength=NUM_PARTITIONS)),
           "pipeline: partition counts")
     log(f"fused_pipeline: {n} records identical to the golden")
-    del sp, out_lanes, out_vals, perm, counts, keys, lanes, hmat
+    del sp, out_lanes, out_vals, perm, counts, lanes, hmat
 
-    # -- phase 6: combiner leg -----------------------------------------------
+    # -- phase 5b: the same records through DeviceSpanScheduler --------------
+    # submit_ragged in the producer's two spans, coalesced into one
+    # dispatch: its result is the stable sort of the concatenation, which
+    # must equal device_shuffle_sort's above
+    sched = DeviceSpanScheduler(NUM_PARTITIONS, key_width=12,
+                                coalesce_records=n, paused=True,
+                                device=device)
+    with Launches("span_scheduler", totals) as ln, \
+            Phase("span_scheduler", n * 20, device, split=False):
+        for sid, (sids, svals) in enumerate(zip(span_ids, span_vals)):
+            sched.submit_ragged(sid, vocab[sids].reshape(-1),
+                                np.arange(len(sids) + 1, dtype=np.int64) * 12,
+                                svals.reshape(-1), 8)
+        sched.resume()
+        res = sched.results()
+    ln.require(device, "fnv_hash_bytes")
+    check(res[0] is res[1] and res[0][5] == n,
+          "span_scheduler: the spans did not coalesce")
+    got = res[0]
+    for label, g, w in (("sorted partitions", got[0][:n], golden[0]),
+                        ("sorted lanes", got[1][:n], golden[1]),
+                        ("sorted values", got[2][:n], golden[2]),
+                        ("perm", got[3][:n], golden[3]),
+                        ("counts", got[4], golden[4])):
+        check(np.array_equal(g.view(w.dtype) if g.dtype.itemsize ==
+                             w.dtype.itemsize else g, w),
+              f"span_scheduler: {label} differ from device_shuffle_sort")
+    log(f"span_scheduler: {n} records in 2 spans identical to "
+        f"device_shuffle_sort")
+    del sched, res, got, golden, keys
+
+    # -- phase 6: combiner leg, on the async plane with the precombine -------
     words, wmat, wlens = word_vocab(rng)
     word_part = fnv_np(wmat, wlens) % NUM_PARTITIONS
-    totals = np.zeros(len(words), dtype=np.int64)
-    producer_batches, records, nbytes = [], 0, 0
+    totals_w = np.zeros(len(words), dtype=np.int64)
+    producer_batches, records, nbytes, distinct = [], 0, 0, 0
     for _p in range(args.producers):
         spans = [word_batch(rng, wmat, wlens, span_bytes) for _s in range(2)]
         for batch, ids in spans:
-            totals += np.bincount(ids, minlength=len(words))
+            totals_w += np.bincount(ids, minlength=len(words))
             records += batch.num_records
+            distinct += len(np.unique(ids))
             nbytes += int(batch.key_offsets[-1]) + int(batch.val_offsets[-1])
         producer_batches.append([b for b, _i in spans])
-    with Phase("combiner", nbytes, device):
+    pipelines, counters = [], TezCounters()
+    with Launches("combiner", totals) as ln, \
+            Phase("combiner", nbytes, device, split=False):
         runs = produce(producer_batches, 16, span_bytes,
-                       combiner=sum_long_combiner, device=device)
+                       combiner=sum_long_combiner, device=device,
+                       pipelines=pipelines, counters=counters,
+                       pipeline_depth=2)
         del producer_batches
         final = sum_long_combiner(merge_sorted_runs(
             runs, NUM_PARTITIONS, 16, device=device))
+    ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+    check_fault_free("combiner", pipelines, [counters])
+    cin = counters.find_counter(TaskCounter.COMBINE_INPUT_RECORDS).value
+    cout = counters.find_counter(TaskCounter.COMBINE_OUTPUT_RECORDS).value
+    check(cin == records, f"combiner: COMBINE_INPUT_RECORDS {cin} != "
+                          f"{records} records")
+    check(cout == distinct, f"combiner: COMBINE_OUTPUT_RECORDS {cout} != "
+                            f"{distinct} distinct words per span")
     golden = collections.Counter(
-        {words[i]: int(c) for i, c in enumerate(totals) if c})
+        {words[i]: int(c) for i, c in enumerate(totals_w) if c})
     index = {w: i for i, w in enumerate(words)}
     b = final.batch
     counts = (np.frombuffer(b.val_bytes.tobytes(), ">u8").astype(np.uint64)
@@ -692,9 +909,154 @@ def slice_phases(args, device="cuda") -> dict:
             got[k] = int(counts[i])
             prev = k
     check(got == golden, "combiner: counts differ from the Counter golden")
-    log(f"combiner: {records} records -> {len(got)} words, counts equal "
-        f"to the Counter golden")
-    return dict(kernels.launches)
+    log(f"combiner: {records} records -> precombined to {cout} -> "
+        f"{len(got)} words, COMBINE_INPUT_RECORDS={cin} "
+        f"COMBINE_OUTPUT_RECORDS={cout}, counts equal to the Counter golden")
+    return dict(totals)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the containment ladder on the card
+# ---------------------------------------------------------------------------
+def containment_phase(args, device="cuda", hang_ms: int = 60_000,
+                      span_mb: float = 16) -> dict:
+    """One producer x 6 spans through DeviceSorter(pipeline_depth=2), once
+    fault-free and once under each fault spec; every flush must be byte
+    for byte the fault-free one and the named counters must move.  Returns
+    the kernel launches of the phase."""
+    from tez_tpu_torch.common import faults
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.ops import kernels
+    from tez_tpu_torch.ops.async_stage import (CircuitBreaker,
+                                               reset_process_breaker)
+    from tez_tpu_torch.ops.sorter import DeviceSorter
+    span_bytes = int(span_mb * (1 << 20))
+    rng = np.random.default_rng(args.seed + 7)
+    vocab = bench_vocab()
+    batches = [bench_batch(rng, vocab, span_records(span_bytes))[0]
+               for _ in range(6)]
+    clock = SettableClock()
+    phase_launches: collections.Counter = collections.Counter()
+
+    def run(label, spec, breaker=None, before=None, **kw):
+        faults.clear_all()
+        reset_process_breaker()
+        if spec:
+            faults.install("smoke", faults.parse_spec(spec))
+        counters = TezCounters()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        s = DeviceSorter(num_partitions=NUM_PARTITIONS, key_width=12,
+                         span_budget_bytes=span_bytes, engine="device",
+                         pipeline_depth=2, counters=counters, device=device,
+                         breaker=breaker, **kw)
+        pipe = s._ensure_pipeline()
+        for i, batch in enumerate(batches):
+            if before and i in before:
+                before[i](pipe)
+            s.write_batch(batch)
+        out = s.flush()
+        wall = time.perf_counter() - t0
+        faults.clear_all()
+        phase_launches.update(kernels.launches)
+        fo = failover_counters(counters)
+        log(f"containment {label}: wall_s={wall:.3f} spec={spec!r} "
+            f"stats={json.dumps(pipe.stats.to_dict())} "
+            f"DeviceFailover={json.dumps(fo)} "
+            f"completion_order={pipe.completion_order}")
+        return out, pipe, fo, wall
+
+    base, pipe, fo, _ = run("fault-free", "")
+    check_fault_free("containment fault-free", [pipe], [])
+    check(not any(fo.values()), f"containment fault-free: counters {fo}")
+    check(not is_cuda(device) or (kernels.launches["fnv_hash_lanes"] > 0
+                                  and kernels.launches["merge_path_pair"] > 0),
+          f"containment fault-free: launches {kernels.launches}")
+    want = run_bytes(base)
+
+    def same(label, out):
+        check(run_bytes(out) == want,
+              f"containment {label}: flush differs from the fault-free one")
+
+    out, pipe, fo, _ = run(
+        "delay", "device.dispatch.delay:delay:ms=1500,n=1,match=span=0")
+    same("delay", out)
+    check(pipe.completion_order[0] != 0,
+          f"containment delay: completion order not perturbed "
+          f"{pipe.completion_order}")
+    check(pipe.stats.failovers == 0, "containment delay: failover")
+
+    out, pipe, fo, _ = run(
+        "oom", "device.dispatch.oom:fail:n=1,exc=runtime,match=span=1")
+    same("oom", out)
+    check(fo.get("device.oom.split_attempts") == 1 and
+          fo.get("device.oom.split_success") == 1 and
+          pipe.stats.oom_splits == 1 and pipe.stats.failovers == 0 and
+          not fo.get("device.failover.spans"),
+          f"containment oom: split ladder counters {fo}")
+
+    out, pipe, fo, _ = run(
+        "readback", "device.readback.fail:fail:n=1,exc=io,match=span=2")
+    same("readback", out)
+    check(fo.get("device.failover.spans") == 1,
+          f"containment readback: failover counters {fo}")
+
+    out, pipe, fo, wall = run(
+        "hang", f"device.dispatch.hang:delay:ms={hang_ms},n=1,match=span=1",
+        watchdog_dispatch_ms=500)
+    same("hang", out)
+    check(fo.get("device.watchdog.fires") == 1 and
+          fo.get("device.watchdog.dispatch_fires") == 1,
+          f"containment hang: watchdog counters {fo}")
+    check(wall < hang_ms / 1e3 / 2,
+          f"containment hang: flush took {wall:.1f} s, not bounded by the "
+          f"watchdog")
+
+    def completed(pipe, n):
+        deadline = time.monotonic() + 300
+        while pipe.stats.completed < n:
+            check(pipe.error is None and time.monotonic() < deadline,
+                  f"containment breaker: spans 0-{n - 1} did not complete")
+            time.sleep(0.01)
+
+    def cool_down(pipe):
+        # spans 2-3 short-circuited to the host while the breaker's clock
+        # stood still; now let the cooldown pass: span 4 is the half-open
+        # probe
+        completed(pipe, 4)
+        clock.advance(10.0)
+
+    # spans 0-1 fail their readback and trip the breaker before span 2 is
+    # written, so no device success can close it early
+    br = CircuitBreaker(failures=2, cooldown_ms=1000, clock=clock)
+    out, pipe, fo, _ = run(
+        "breaker", "device.readback.fail:fail:n=2,exc=io", breaker=br,
+        before={2: lambda pipe: completed(pipe, 2), 4: cool_down})
+    same("breaker", out)
+    check(fo.get("device.breaker.trips") == 1 and
+          fo.get("device.breaker.short_circuits", 0) >= 2 and
+          fo.get("device.breaker.recoveries") == 1 and br.probes == 1 and
+          br.state == "closed",
+          f"containment breaker: counters {fo}, probes {br.probes}, "
+          f"state {br.state}")
+    reset_process_breaker()
+    log("containment: 5 fault runs byte-identical to the fault-free flush, "
+        "each with its counters moved")
+    return dict(phase_launches)
+
+
+class SettableClock:
+    """A clock that stands still until advanced: the breaker's cooldown
+    in phase 7 elapses when the script says so, not by wall time."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
 
 
 def report_profile(prof, wall_s: float) -> None:
@@ -754,6 +1116,10 @@ def main(argv=None) -> int:
         launches = slice_phases(args)
     log(f"slice: {time.perf_counter() - t0:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    fault_launches = containment_phase(args)
+    log(f"containment: {time.perf_counter() - t0:.3f} s, launches "
+        f"{json.dumps(fault_launches)}")
     for kname, row in rows.items():
         row["launches"] = launches[kname]
     for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:

@@ -93,16 +93,30 @@ def test_slice_phases_check_their_goldens_on_the_host():
                         "merge_rank": 0, "merge_path_pair": 0}
 
 
+def test_containment_phase_on_the_host():
+    """chip_smoke's phase 7 at a small size with the plain versions: each
+    fault run flushes the fault-free bytes and moves its counters (a 20 s
+    hang against the 500 ms watchdog, so the bound is checked too)."""
+    args = type("Args", (), {"seed": 5})
+    launches = chip_smoke.containment_phase(args, device="cpu",
+                                            hang_ms=20_000, span_mb=2.5)
+    assert launches == {"fnv_hash_bytes": 0, "fnv_hash_lanes": 0,
+                        "merge_rank": 0, "merge_path_pair": 0}
+
+
 def test_import_guard_no_jax_no_tez_tpu():
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         import tez_tpu_torch
-        from tez_tpu_torch.common import counters, metrics
+        from tez_tpu_torch.common import (clock, counters, faults, metrics,
+                                          tracing)
         from tez_tpu_torch.library import partitioners
-        from tez_tpu_torch.ops import (_build, device, device_pipeline,
-                                       host_sort, kernels, keycodec,
-                                       runformat, serde, sorter)
+        from tez_tpu_torch.obs import flight
+        from tez_tpu_torch.ops import (_build, async_stage, device,
+                                       device_pipeline, host_sort, kernels,
+                                       keycodec, native, runformat, serde,
+                                       sorter)
         bad = [m for m in sys.modules
                if m == "tez_tpu" or m.startswith("tez_tpu.")
                or m == "jax" or m.startswith("jax.")]

@@ -157,8 +157,9 @@ def test_sum_long_combiner_matches():
 
 
 def test_deferred_features_raise():
-    with pytest.raises(NotImplementedError):
-        tsorter.DeviceSorter(2, pipeline_depth=2, device="cpu")
+    # the async span plane is ported: pipeline_depth > 0 builds a sorter
+    assert tsorter.DeviceSorter(2, pipeline_depth=2,
+                                device="cpu").pipeline_depth == 2
     with pytest.raises(NotImplementedError):
         tsorter.DeviceSorter(2, spill_dir="/nonexistent", device="cpu")
     with pytest.raises(NotImplementedError):

@@ -83,11 +83,17 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     return out
 
 
+def load(names: Iterable[str] = KERNELS) -> None:
+    """Build the missing libraries of `names` (in parallel) and load
+    them."""
+    with _lock:
+        todo = [n for n in names if n not in _loaded]
+        if todo:
+            for name, info in build(todo).items():
+                _loaded[name] = ctypes.CDLL(info["path"])
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = build([name])[name]["path"]
-            lib = _loaded[name] = ctypes.CDLL(path)
-        return lib
+    load([name])
+    return _loaded[name]

@@ -1,0 +1,977 @@
+"""Asynchronous double-buffered device staging pipeline: the port's copy of
+tez_tpu/ops/async_stage.py.
+
+Serial spans pay host ragged->lane encode, H2D staging, sort dispatch and
+readback one after another, the card idle during host work and the host
+idle during device work.  This module is the overlap engine:
+
+  submit(span k+2) ... -> [encode+stage span k+1]   (staging thread)
+                          [dispatch span k]         (device in flight)
+                          [readback span k-1]       (readback workers)
+
+It is device-agnostic, as in tez_tpu: every CUDA call lives in the stage
+functions its caller passes (ops/device.py's stage_/dispatch_/
+readback_resident_span, ops/device_pipeline.py's DeviceSpanScheduler),
+which enqueue on their own CUDA streams and return without synchronising.
+
+Design points:
+
+* **Bounded dispatch-ahead.**  At most ``depth`` spans are past the staging
+  gate at once (encoded/staged/dispatched but not yet fully read back).
+  ``depth=2`` is classic double buffering: one span on the device, one
+  staged and ready to go the moment the device frees.  The submit side is
+  *not* blocked by the gate: spans queue host-side as raw payloads and the
+  staging thread pulls them through.
+* **Out-of-order completion.**  Readback runs on a small worker pool, so a
+  span stalled in D2H (or delayed by the ``device.dispatch.delay`` fault
+  point) does not block the span behind it.  Completion callbacks fire in
+  *completion* order; callers that need submission order key their
+  results by span id (DeviceSorter keys runs by spill id).
+* **Span batching.**  Spans submitted with ``coalesce=True`` are merged by
+  the staging thread into one bucketed dispatch while their combined record
+  count fits ``coalesce_records``: many small spans amortize one dispatch.
+* **Deterministic instrumentation.**  The clock is injectable and every
+  stage transition lands in ``events`` when ``instrument=True``, so the
+  overlap contract (span k+1's encode starts before span k's dispatch
+  completes; in-flight depth never exceeds the bound) is asserted against a
+  fake clock, not by eyeballing wall time.
+
+Failure containment (active only when a ``failover_fn`` is wired):
+
+* **Dispatch watchdog.**  A monitor thread enforces per-stage deadlines
+  (``watchdog_dispatch_ms`` / ``watchdog_readback_ms``, measured on the
+  injectable clock) on every in-progress device attempt.  A hung dispatch
+  or readback is *abandoned*: the group is claimed away from its worker,
+  journaled as a span event, and re-sorted through ``failover_fn``, so a
+  wedged card can never wedge ``drain()``/``flush()``.
+* **Host-engine failover + circuit breaker.**  Any device-attempt failure
+  re-routes the group through ``failover_fn`` (DeviceSorter wires the host
+  engine, bit-exact with the device path).  Consecutive failures trip a
+  sticky per-process :class:`CircuitBreaker`; while open, new groups
+  short-circuit straight to host, and after ``cooldown_ms`` one half-open
+  probe group is allowed back on the device; its success re-arms the
+  engine.
+* **OOM ladder.**  Failures classified as out of memory first retry via
+  ``oom_retry_fn`` (DeviceSorter: re-sort on device with the span split in
+  half, recursively, down to a byte floor) before host failover: one
+  oversized span doesn't count against the breaker or leave the device.
+* **Crash containment.**  Readback runs on *daemon* worker threads with a
+  bounded-join shutdown, and a staging thread wedged inside a hung
+  dispatch hands its queue to the monitor thread, which drains the
+  remaining spans through failover.
+
+Every stage emits ``common/tracing.py`` spans (``device.encode`` /
+``device.h2d`` / ``device.dispatch`` / ``device.d2h``) and the matching
+``common/metrics.py`` histograms (``device.encode``, ``device.h2d``,
+``device.dispatch_wait``, ``device.d2h``; failover re-sorts land in
+``device.failover.host_sort``).  Containment decisions emit
+``DeviceFailover`` counters (``device.failover.spans``,
+``device.watchdog.fires``, ``device.breaker.trips`` ...) plus the
+``device.breaker.state`` gauge.
+"""
+from __future__ import annotations
+
+import collections
+import logging
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from tez_tpu_torch.common import faults, metrics, tracing
+from tez_tpu_torch.obs import flight as _flight
+
+log = logging.getLogger(__name__)
+
+#: Stage names, in pipeline order (also the tracing span names).
+STAGE_ENCODE = "device.encode"
+STAGE_H2D = "device.h2d"
+STAGE_DISPATCH = "device.dispatch"
+STAGE_D2H = "device.d2h"
+#: Pseudo-stage for a host-engine failover re-sort (tracing + events name).
+STAGE_FAILOVER = "device.failover"
+
+#: Histogram fed by the dispatch->readback-complete interval: how long a
+#: dispatched program was in flight before its results were host-visible.
+DISPATCH_WAIT_HIST = "device.dispatch_wait"
+#: Histogram fed by failover re-sorts (host engine wall per group).
+FAILOVER_HIST = "device.failover.host_sort"
+
+#: Counter group carrying the containment plane's decisions; dotted counter
+#: names so history dumps read as device.failover.spans etc.
+COUNTER_GROUP = "DeviceFailover"
+
+#: Real-time poll period bounds of the watchdog monitor thread.  Deadlines
+#: are compared on the pipeline's injectable clock; only the poll cadence
+#: is wall time, so fake-clock tests fire within one poll of advancing it.
+#: The cadence scales with the tightest configured budget (budget/8,
+#: clamped to these bounds): production deadlines are tens of seconds, and
+#: a 20 ms poll would burn GIL slices against the staging thread's encode
+#: work for nothing, while fake-clock tests (budgets ~1 s) still get a
+#: sub-200 ms reaction.
+WATCHDOG_POLL_MIN_S = 0.02
+WATCHDOG_POLL_MAX_S = 0.5
+
+_BREAKER_GAUGE = "device.breaker.state"
+_BREAKER_STATE_VALUES = {"closed": 0.0, "half-open": 1.0, "open": 2.0}
+
+
+def _count(counters: Any, name: str, n: int = 1) -> None:
+    if counters is not None:
+        counters.group(COUNTER_GROUP).find_counter(name).increment(n)
+
+
+class CircuitBreaker:
+    """Sticky consecutive-failure breaker over the device engine.
+
+    closed -> (``failures`` consecutive device-attempt failures) -> open
+    open -> (``cooldown_ms`` elapsed on the injectable clock) -> half-open
+    half-open: exactly one caller gets ``allow_device() == True`` (the
+    probe); its success closes the breaker, its failure re-opens it for
+    another cooldown.  While open/probing every other caller is told to
+    route straight to the host engine.
+
+    One breaker is shared per process by default (:func:`process_breaker`):
+    a sick chip is a *process* property, so every sorter in the task
+    benefits from the first one's diagnosis.
+    """
+
+    def __init__(self, failures: int = 3, cooldown_ms: float = 5_000.0,
+                 clock: Callable[[], float] = time.perf_counter) -> None:
+        self._lock = threading.Lock()
+        self.failures = max(1, int(failures))
+        self.cooldown_ms = float(cooldown_ms)
+        self._clock = clock
+        self._state = "closed"
+        self._consecutive = 0
+        self._opened_at = 0.0
+        self._probing = False
+        self.trips = 0
+        self.probes = 0
+        self.recoveries = 0
+
+    def configure(self, failures: Optional[int] = None,
+                  cooldown_ms: Optional[float] = None,
+                  clock: Optional[Callable[[], float]] = None) -> None:
+        """Idempotent re-parameterization (the process singleton is built
+        before any sorter can pass its knobs down)."""
+        with self._lock:
+            if failures is not None:
+                self.failures = max(1, int(failures))
+            if cooldown_ms is not None:
+                self.cooldown_ms = float(cooldown_ms)
+            if clock is not None:
+                self._clock = clock
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def _set_state(self, state: str) -> None:
+        self._state = state
+        metrics.set_gauge(_BREAKER_GAUGE, _BREAKER_STATE_VALUES[state])
+
+    def allow_device(self) -> bool:
+        """True when the caller may attempt the device: breaker closed, or
+        the caller just became the half-open probe."""
+        with self._lock:
+            if self._state == "closed":
+                return True
+            if self._state == "open" and \
+                    (self._clock() - self._opened_at) * 1000.0 >= \
+                    self.cooldown_ms:
+                self._set_state("half-open")
+                self._probing = False
+            if self._state == "half-open" and not self._probing:
+                self._probing = True
+                self.probes += 1
+                tracing.event("device.breaker.probe")
+                _flight.record(_flight.BREAKER, "half-open")
+                return True
+            return False
+
+    def record_success(self, counters: Any = None) -> None:
+        with self._lock:
+            self._consecutive = 0
+            recovered = self._state != "closed"
+            if recovered:
+                self._set_state("closed")
+                self._probing = False
+                self.recoveries += 1
+        if recovered:
+            tracing.event("device.breaker.closed")
+            _flight.record(_flight.BREAKER, "closed")
+            _count(counters, "device.breaker.recoveries")
+
+    def record_failure(self, counters: Any = None) -> None:
+        with self._lock:
+            self._consecutive += 1
+            tripped = False
+            # a half-open probe failure re-opens immediately; closed trips
+            # only at the consecutive threshold
+            if self._state == "half-open" or (
+                    self._state == "closed" and
+                    self._consecutive >= self.failures):
+                self._set_state("open")
+                self._probing = False
+                self._opened_at = self._clock()
+                self.trips += 1
+                tripped = True
+            elif self._state == "open":
+                # stragglers already past the breaker check: keep it open
+                self._opened_at = self._clock()
+        if tripped:
+            tracing.event("device.breaker.open",
+                          consecutive=self._consecutive)
+            _flight.record(_flight.BREAKER, "open", a=self._consecutive)
+            _flight.auto_dump("device.breaker.open")
+            _count(counters, "device.breaker.trips")
+
+
+_PROC_BREAKER: Optional[CircuitBreaker] = None
+_PROC_BREAKER_LOCK = threading.Lock()
+
+
+def process_breaker() -> CircuitBreaker:
+    """The sticky per-process breaker shared by every pipeline that doesn't
+    inject its own."""
+    global _PROC_BREAKER
+    with _PROC_BREAKER_LOCK:
+        if _PROC_BREAKER is None:
+            _PROC_BREAKER = CircuitBreaker()
+        return _PROC_BREAKER
+
+
+def reset_process_breaker() -> None:
+    """Forget the process breaker (tests and smoke runs isolate scenarios
+    with it)."""
+    global _PROC_BREAKER
+    with _PROC_BREAKER_LOCK:
+        _PROC_BREAKER = None
+    metrics.set_gauge(_BREAKER_GAUGE, 0.0)
+
+
+# -- device memory pressure hooks (evict-then-split) -------------------------
+# A buffer store registers its relief callback here; the out-of-memory
+# ladder calls relieve_pressure() BEFORE halving a span, so device memory
+# held by evictable entries (cold resident key lanes) is reclaimed first
+# and the span often retries whole instead of paying the split merge.  The
+# port has no buffer store yet, so no hook is registered and the ladder
+# goes straight to the split.
+
+_PRESSURE_HOOKS: List[Callable[[int], int]] = []
+_PRESSURE_LOCK = threading.Lock()
+
+
+def register_pressure_hook(fn: Callable[[int], int]) -> None:
+    """Register a callback (nbytes_wanted -> nbytes_freed)."""
+    with _PRESSURE_LOCK:
+        if fn not in _PRESSURE_HOOKS:
+            _PRESSURE_HOOKS.append(fn)
+
+
+def clear_pressure_hooks() -> None:
+    with _PRESSURE_LOCK:
+        _PRESSURE_HOOKS.clear()
+
+
+def relieve_pressure(nbytes: int, counters: Any = None) -> int:
+    """Ask every registered hook to free device memory; returns the total
+    bytes reclaimed (0 when no hook is registered or nothing is
+    evictable)."""
+    with _PRESSURE_LOCK:
+        hooks = list(_PRESSURE_HOOKS)
+    freed = 0
+    for fn in hooks:
+        try:
+            freed += int(fn(int(nbytes)))
+        except Exception:  # noqa: BLE001 — relief is best-effort
+            log.exception("pressure hook failed")
+    if freed > 0:
+        _count(counters, "device.oom.evicted_bytes", freed)
+        _count(counters, "device.oom.evict_relief")
+    return freed
+
+
+class _DaemonPool:
+    """Readback worker pool on *daemon* threads with a bounded-join
+    shutdown.  The stdlib ThreadPoolExecutor's workers are non-daemon and
+    joined unconditionally at interpreter exit — one watchdog-abandoned
+    (permanently hung) readback would wedge both ``drain()`` and process
+    shutdown.  Here a hung worker just never picks up its sentinel and the
+    daemon flag lets the interpreter leave without it."""
+
+    def __init__(self, workers: int, name: str) -> None:
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._threads: List[threading.Thread] = []
+        for i in range(max(1, workers)):
+            t = threading.Thread(target=self._loop,
+                                 name=f"{name}_{i}", daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def _loop(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, args = item
+            # task fns own their error handling (_readback_one never lets
+            # an exception escape); a raise here would only kill the worker
+            try:
+                fn(*args)
+            except BaseException:  # noqa: BLE001
+                pass
+
+    def submit(self, fn: Callable, *args: Any) -> None:
+        self._q.put((fn, args))
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        for _ in self._threads:
+            self._q.put(None)
+        deadline = time.monotonic() + timeout
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+
+
+class PipelineStats:
+    """Counters the scheduler maintains under its lock; snapshot freely."""
+
+    __slots__ = ("submitted", "dispatched", "completed", "coalesced_groups",
+                 "max_in_flight", "failovers", "watchdog_fires",
+                 "oom_splits")
+
+    def __init__(self) -> None:
+        self.submitted = 0
+        self.dispatched = 0
+        self.completed = 0
+        self.coalesced_groups = 0
+        self.max_in_flight = 0
+        self.failovers = 0
+        self.watchdog_fires = 0
+        self.oom_splits = 0
+
+    def to_dict(self) -> Dict[str, int]:
+        return {s: getattr(self, s) for s in self.__slots__}
+
+
+class _Group:
+    """One dispatch unit: one span, or several coalesced small spans."""
+
+    __slots__ = ("ids", "payloads", "staged", "inflight", "t_dispatch",
+                 "claimed", "gate_held")
+
+    def __init__(self, ids: List[Any], payloads: List[Any]) -> None:
+        self.ids = ids
+        self.payloads = payloads
+        self.staged: Any = None
+        self.inflight: Any = None
+        self.t_dispatch = 0.0
+        #: exactly-once completion token: set by whichever of {worker
+        #: thread, watchdog} gets to finish the group first; the loser
+        #: discards its (late) result silently
+        self.claimed = False
+        #: True while this group holds one dispatch-ahead gate slot
+        self.gate_held = False
+
+
+class AsyncSpanPipeline:
+    """Bounded dispatch-ahead scheduler over caller-provided stage functions.
+
+    Parameters
+    ----------
+    encode_fn(payload) -> staged
+        Host-side work (ragged->lane encode, precombine).  Runs on the
+        staging thread; overlaps in-flight device work.
+    stage_fn(staged) -> staged'
+        H2D staging: uploads host arrays, returns device handles.  Runs on
+        the staging thread right after encode (its cost is histogrammed
+        separately).  May be None (encode_fn already staged).
+    dispatch_fn(staged) -> inflight
+        Launches the device program.  Must be *asynchronous*: it enqueues
+        the work on a stream and returns without synchronising.
+    readback_fn(inflight, ids) -> result
+        Blocks until device results are host-visible and builds the final
+        result.  Runs on readback workers; may complete out of order.
+    coalesce_fn(list_of_staged) -> staged
+        Merges several staged spans into one dispatch unit.  Required only
+        when callers submit with ``coalesce=True``.
+    records_fn(payload) -> int
+        Span size in records, used by the coalescing budget.
+    on_complete(ids, result)
+        Completion callback; ids is the tuple of span ids the dispatch
+        covered (len 1 unless coalesced).  May fire out of submission
+        order; the pipeline serializes calls (one at a time) but makes no
+        ordering promise.
+    depth
+        Max groups past the staging gate (staged or in flight).  2 =
+        double buffering.
+    failover_fn(ids, payloads) -> result
+        Host-engine re-sort of a group from its RAW payloads; must be
+        bit-exact with the device path.  Wiring this turns the containment
+        plane on; without it any stage error poisons the pipeline exactly
+        as before.
+    oom_retry_fn(ids, payloads) -> result
+        RESOURCE_EXHAUSTED ladder: retry the group on-device split (raise
+        to decline, e.g. at the split byte floor — the group then takes
+        ``failover_fn``).
+    breaker
+        Shared :class:`CircuitBreaker`; defaults to the process singleton
+        when the containment plane is on.
+    watchdog_dispatch_ms / watchdog_readback_ms
+        Per-stage deadlines on the injectable clock; 0 leaves that stage
+        unwatched.  The monitor thread starts only when a deadline is set
+        AND ``failover_fn`` is wired.
+    """
+
+    def __init__(self,
+                 dispatch_fn: Callable[[Any], Any],
+                 readback_fn: Callable[[Any, Tuple[Any, ...]], Any],
+                 encode_fn: Optional[Callable[[Any], Any]] = None,
+                 stage_fn: Optional[Callable[[Any], Any]] = None,
+                 coalesce_fn: Optional[Callable[[List[Any]], Any]] = None,
+                 records_fn: Optional[Callable[[Any], int]] = None,
+                 on_complete: Optional[Callable[[Tuple[Any, ...], Any],
+                                                None]] = None,
+                 depth: int = 2,
+                 coalesce_records: int = 0,
+                 readback_workers: int = 2,
+                 counters: Any = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 instrument: bool = False,
+                 paused: bool = False,
+                 name: str = "device-pipeline",
+                 failover_fn: Optional[Callable[[Tuple[Any, ...],
+                                                 List[Any]], Any]] = None,
+                 oom_retry_fn: Optional[Callable[[Tuple[Any, ...],
+                                                  List[Any]], Any]] = None,
+                 breaker: Optional[CircuitBreaker] = None,
+                 watchdog_dispatch_ms: float = 0.0,
+                 watchdog_readback_ms: float = 0.0,
+                 dispatch_wait_hist: str = DISPATCH_WAIT_HIST) -> None:
+        if depth < 1:
+            raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+        self._encode_fn = encode_fn or (lambda p: p)
+        self._stage_fn = stage_fn
+        self._dispatch_fn = dispatch_fn
+        self._readback_fn = readback_fn
+        self._coalesce_fn = coalesce_fn
+        self._records_fn = records_fn or (lambda p: 1)
+        self._on_complete = on_complete
+        self.depth = depth
+        self.coalesce_records = coalesce_records
+        self._counters = counters
+        self._clock = clock
+        self._name = name
+        self.stats = PipelineStats()
+        #: (span_id_or_ids, stage, edge, t) when instrument=True
+        self.events: List[Tuple[Any, str, str, float]] = []
+        self._instrument = instrument
+
+        self._failover_fn = failover_fn
+        self._oom_retry_fn = oom_retry_fn
+        self._breaker: Optional[CircuitBreaker] = None
+        if failover_fn is not None:
+            self._breaker = breaker if breaker is not None \
+                else process_breaker()
+        self._watchdog_dispatch_ms = float(watchdog_dispatch_ms)
+        self._watchdog_readback_ms = float(watchdog_readback_ms)
+        #: which histogram records dispatch->host-visible latency: the sort
+        #: plane keeps DISPATCH_WAIT_HIST; the reduce-side merge lane
+        #: (library/merge_manager.py) points this at "device.merge" so its
+        #: waits don't pollute the producer pipeline's stage breakdown
+        self._dispatch_wait_hist = dispatch_wait_hist
+
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._pending: "collections.deque[Tuple[Any, Any, bool]]" = \
+            collections.deque()
+        self._in_flight = 0          # groups past the staging gate
+        self._open_spans = 0         # submitted, not yet completed
+        self._results: Dict[Any, Any] = {}
+        self._completion_order: List[Any] = []
+        self._error: Optional[BaseException] = None
+        self._closed = False
+        #: paused=True holds the staging thread until resume(): callers that
+        #: want DETERMINISTIC coalescing submit every span first, then
+        #: resume — otherwise the staging thread races the submit loop and
+        #: group boundaries depend on scheduling
+        self._paused = paused
+        self._complete_lock = threading.Lock()
+        #: in-progress device attempts under a deadline:
+        #: id(group) -> (group, ids, stage, deadline-on-injectable-clock)
+        self._watch: Dict[int, Tuple[_Group, Tuple[Any, ...], str, float]] \
+            = {}
+        #: True once the watchdog abandoned a dispatch: the staging thread
+        #: is stuck inside dispatch_fn and can never pull the queue again —
+        #: the monitor thread owns _pending from then on
+        self._wedged = False
+        #: True once ANY attempt was watchdog-abandoned: some worker may be
+        #: permanently stuck, so drain() joins with a short bound instead
+        #: of the cooperative-shutdown one
+        self._abandoned = False
+
+        self._staging = threading.Thread(
+            target=self._staging_loop, name=f"{name}-staging", daemon=True)
+        self._staging.start()
+        self._readback = _DaemonPool(readback_workers, f"{name}-readback")
+        self._monitor: Optional[threading.Thread] = None
+        self._monitor_stop = threading.Event()
+        if failover_fn is not None and (self._watchdog_dispatch_ms > 0 or
+                                        self._watchdog_readback_ms > 0):
+            budgets = [b for b in (self._watchdog_dispatch_ms,
+                                   self._watchdog_readback_ms) if b > 0]
+            self._poll_s = min(WATCHDOG_POLL_MAX_S,
+                               max(WATCHDOG_POLL_MIN_S,
+                                   min(budgets) / 1000.0 / 8.0))
+            self._monitor = threading.Thread(
+                target=self._watchdog_loop, name=f"{name}-watchdog",
+                daemon=True)
+            self._monitor.start()
+
+    # -- instrumentation -----------------------------------------------------
+    def _mark(self, ids: Any, stage: str, edge: str) -> float:
+        t = self._clock()
+        if self._instrument:
+            with self._lock:
+                self.events.append((ids, stage, edge, t))
+        return t
+
+    def _observe(self, hist: str, t0: float, t1: float) -> None:
+        metrics.observe(hist, max(0.0, (t1 - t0) * 1000.0),
+                        counters=self._counters)
+
+    # -- submit side ---------------------------------------------------------
+    def submit(self, span_id: Any, payload: Any,
+               coalesce: bool = False) -> None:
+        """Queue a span.  Never blocks on the dispatch-ahead gate (raw
+        payloads are the collector's own buffers); raises the pipeline's
+        first stage error if one already occurred."""
+        with self._cv:
+            if self._error is not None:
+                raise RuntimeError(
+                    f"{self._name}: pipeline failed") from self._error
+            if self._closed:
+                raise RuntimeError(f"{self._name}: submit after drain")
+            self._pending.append((span_id, payload, coalesce))
+            self._open_spans += 1
+            self.stats.submitted += 1
+            self._cv.notify_all()
+
+    def resume(self) -> None:
+        """Release a pipeline constructed with paused=True."""
+        with self._cv:
+            self._paused = False
+            self._cv.notify_all()
+
+    def drain(self) -> Dict[Any, Any]:
+        """Block until every submitted span completed; stop the staging
+        thread; re-raise the first stage error.  Returns {span_id: result}
+        (completion order preserved in ``completion_order``).
+
+        Bounded even under a wedged device: a watchdog-abandoned worker is
+        a daemon thread the shutdown joins with a timeout, never waits on
+        forever."""
+        with self._cv:
+            self._paused = False
+            self._closed = True
+            self._cv.notify_all()
+            while self._open_spans > 0 and self._error is None:
+                self._cv.wait(timeout=0.5)
+            error = self._error
+        if self._monitor is not None:
+            self._monitor_stop.set()
+            self._monitor.join(timeout=5.0)
+        # an abandoned attempt means its thread may never exit its stage
+        # fn: join with a short bound instead of waiting out a hung chip
+        short = self._wedged or self._abandoned
+        self._staging.join(timeout=1.0 if short else 30.0)
+        self._readback.shutdown(timeout=1.0 if short else 30.0)
+        if error is not None:
+            raise error
+        return dict(self._results)
+
+    @property
+    def completion_order(self) -> List[Any]:
+        with self._lock:
+            return list(self._completion_order)
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        return self._error
+
+    # -- staging thread ------------------------------------------------------
+    def _next_group(self) -> Optional[_Group]:
+        """Pop the next dispatch unit, coalescing greedily while allowed.
+        Returns None when closed and empty."""
+        with self._cv:
+            while True:
+                if self._error is not None or self._wedged:
+                    return None
+                if self._pending and not self._paused:
+                    break
+                if self._closed:
+                    return None
+                self._cv.wait(timeout=0.5)
+            span_id, payload, coalesce = self._pending.popleft()
+            ids, payloads = [span_id], [payload]
+            if coalesce and self._coalesce_fn is not None and \
+                    self.coalesce_records > 0:
+                total = self._records_fn(payload)
+                while self._pending:
+                    nid, npay, nco = self._pending[0]
+                    if not nco:
+                        break
+                    nrec = self._records_fn(npay)
+                    if total + nrec > self.coalesce_records:
+                        break
+                    self._pending.popleft()
+                    ids.append(nid)
+                    payloads.append(npay)
+                    total += nrec
+                if len(ids) > 1:
+                    self.stats.coalesced_groups += 1
+            return _Group(ids, payloads)
+
+    def _gate_acquire(self, group: _Group) -> None:
+        """The dispatch-ahead bound: wait until fewer than ``depth`` groups
+        are past the staging gate."""
+        with self._cv:
+            while self._in_flight >= self.depth and self._error is None:
+                self._cv.wait(timeout=0.5)
+            self._in_flight += 1
+            group.gate_held = True
+            self.stats.max_in_flight = max(self.stats.max_in_flight,
+                                           self._in_flight)
+
+    def _gate_release(self, group: _Group) -> None:
+        """Release the group's gate slot exactly once (the watchdog and a
+        late-returning worker may both reach a release path)."""
+        with self._cv:
+            if group.gate_held:
+                group.gate_held = False
+                self._in_flight -= 1
+                self._cv.notify_all()
+
+    def _claim(self, group: _Group) -> bool:
+        """Win the right to finish this group.  Exactly one of {worker
+        thread, watchdog monitor} completes/fails a group; the other side's
+        late outcome is discarded."""
+        with self._lock:
+            if group.claimed:
+                return False
+            group.claimed = True
+            return True
+
+    def _fail(self, exc: BaseException) -> None:
+        with self._cv:
+            if self._error is None:
+                self._error = exc
+            self._cv.notify_all()
+
+    def _complete(self, group: _Group, ids: Tuple[Any, ...],
+                  result: Any) -> None:
+        with self._complete_lock:
+            if self._on_complete is not None:
+                self._on_complete(ids, result)
+            with self._cv:
+                for sid in ids:
+                    self._results[sid] = result
+                    self._completion_order.append(sid)
+                self.stats.completed += len(ids)
+                self._open_spans -= len(ids)
+                self._cv.notify_all()
+
+    def _staging_loop(self) -> None:
+        while True:
+            group = self._next_group()
+            if group is None:
+                return
+            ids = tuple(group.ids)
+            try:
+                # The gate is taken BEFORE encode: depth bounds everything
+                # past raw payloads, so host staging memory (padded
+                # matrices + lane arrays) is bounded by depth spans too.
+                self._gate_acquire(group)
+                if self._error is not None:
+                    self._gate_release(group)
+                    return
+                if self._breaker is not None and \
+                        not self._breaker.allow_device():
+                    # breaker open: the device engine is sick — route the
+                    # group straight to the host engine, never touch the
+                    # chip
+                    _count(self._counters, "device.breaker.short_circuits",
+                           len(ids))
+                    self._claim(group)
+                    self._failover_group(group, ids, reason="breaker-open")
+                    continue
+                t0 = self._mark(ids, STAGE_ENCODE, "start")
+                with tracing.span(STAGE_ENCODE, cat="device",
+                                  spans=repr(list(ids))):
+                    staged = [self._encode_fn(p) for p in group.payloads]
+                t1 = self._mark(ids, STAGE_ENCODE, "end")
+                self._observe(STAGE_ENCODE, t0, t1)
+                one = staged[0] if len(staged) == 1 else \
+                    self._coalesce_fn(staged)
+                t0 = self._mark(ids, STAGE_H2D, "start")
+                with tracing.span(STAGE_H2D, cat="device",
+                                  spans=repr(list(ids))):
+                    if self._stage_fn is not None:
+                        one = self._stage_fn(one)
+                t1 = self._mark(ids, STAGE_H2D, "end")
+                self._observe(STAGE_H2D, t0, t1)
+                t_d = self._mark(ids, STAGE_DISPATCH, "start")
+                self._watch_begin(group, ids, STAGE_DISPATCH,
+                                  self._watchdog_dispatch_ms)
+                try:
+                    # fault seams: an injected hang (delay mode) sits
+                    # inside the watch window like a stuck dispatch;
+                    # an injected OOM drives the split/fallback ladder
+                    if faults.armed():
+                        for sid in ids:
+                            faults.fire("device.dispatch.oom",
+                                        f"span={sid}")
+                            faults.fire("device.dispatch.hang",
+                                        f"span={sid}")
+                    with tracing.span(STAGE_DISPATCH, cat="device",
+                                      spans=repr(list(ids))):
+                        inflight = self._dispatch_fn(one)
+                finally:
+                    self._watch_end(group)
+                self._mark(ids, STAGE_DISPATCH, "end")
+                if group.claimed:
+                    # the watchdog abandoned this dispatch while we were
+                    # stuck in it and already failed the group over; our
+                    # late result is dead and so is this thread's queue
+                    # (the monitor owns _pending once _wedged is set)
+                    return
+                group.staged = None
+                group.inflight = inflight
+                group.t_dispatch = t_d
+                with self._lock:
+                    self.stats.dispatched += 1
+                self._readback.submit(self._readback_one, group, ids)
+            except BaseException as e:  # noqa: BLE001 — surfaces via drain
+                self._contain_failure(group, ids, e)
+                if self._error is not None:
+                    return
+
+    # -- readback workers ----------------------------------------------------
+    def _readback_one(self, group: _Group, ids: Tuple[Any, ...]) -> None:
+        try:
+            if faults.armed():
+                for sid in ids:
+                    faults.fire("device.readback.fail", f"span={sid}")
+            t0 = self._mark(ids, STAGE_D2H, "start")
+            self._watch_begin(group, ids, STAGE_D2H,
+                              self._watchdog_readback_ms)
+            try:
+                with tracing.span(STAGE_D2H, cat="device",
+                                  spans=repr(list(ids))):
+                    result = self._readback_fn(group.inflight, ids)
+            finally:
+                self._watch_end(group)
+            t1 = self._mark(ids, STAGE_D2H, "end")
+            self._observe(STAGE_D2H, t0, t1)
+            self._observe(self._dispatch_wait_hist, group.t_dispatch, t1)
+            # deterministic completion-reorder hook (fault plane):
+            # a delay rule here holds THIS span's completion while later
+            # spans drain through the other workers
+            if faults.armed():
+                for sid in ids:
+                    faults.fire("device.dispatch.delay", f"span={sid}")
+        except BaseException as e:  # noqa: BLE001 — surfaces via drain
+            self._contain_failure(group, ids, e)
+            return
+        if not self._claim(group):
+            return  # watchdog abandoned this attempt mid-readback
+        if self._breaker is not None:
+            self._breaker.record_success(self._counters)
+        self._gate_release(group)
+        try:
+            self._complete(group, ids, result)
+        except BaseException as e:  # noqa: BLE001 — completion errors are
+            self._fail(e)           # final: the group is already claimed
+
+    # -- failure containment -------------------------------------------------
+    def _contain_failure(self, group: _Group, ids: Tuple[Any, ...],
+                         exc: BaseException) -> None:
+        """The containment ladder for a device-attempt failure: OOM ->
+        split retry on device -> host failover; anything else -> host
+        failover; no failover hook, an interrupt or a kernel fault (a
+        broken kernel or a CUDA error, also during the split retry) ->
+        poison the pipeline (the original contract): failover would mask
+        it."""
+        if self._failover_fn is None or _is_fatal(exc):
+            self._gate_release(group)
+            self._fail(exc)
+            return
+        if not self._claim(group):
+            return  # the watchdog already owns this group's outcome
+        if self._breaker is not None:
+            self._breaker.record_failure(self._counters)
+        if self._oom_retry_fn is not None and _is_oom(exc):
+            with self._lock:
+                self.stats.oom_splits += 1
+            _count(self._counters, "device.oom.split_attempts")
+            tracing.event("device.oom.split", spans=repr(list(ids)),
+                          error=str(exc)[:200])
+            try:
+                with tracing.span("device.oom_retry", cat="device",
+                                  spans=repr(list(ids))):
+                    result = self._oom_retry_fn(ids, group.payloads)
+            except BaseException as e2:  # noqa: BLE001 — ladder continues
+                if _is_fatal(e2):
+                    self._gate_release(group)
+                    self._fail(e2)
+                    return
+                exc = e2  # floor reached / split retry failed: host takes it
+            else:
+                # the split retry finished ON DEVICE: the engine is alive
+                _count(self._counters, "device.oom.split_success")
+                if self._breaker is not None:
+                    self._breaker.record_success(self._counters)
+                self._gate_release(group)
+                try:
+                    self._complete(group, ids, result)
+                except BaseException as e3:  # noqa: BLE001
+                    self._fail(e3)
+                return
+        self._failover_group(group, ids, reason=type(exc).__name__,
+                             cause=exc)
+
+    def _failover_group(self, group: _Group, ids: Tuple[Any, ...],
+                        reason: str,
+                        cause: Optional[BaseException] = None) -> None:
+        """Re-sort a claimed group through the host engine and complete it;
+        a failover failure is final (poisons the pipeline)."""
+        try:
+            t0 = self._mark(ids, STAGE_FAILOVER, "start")
+            tracing.event("device.failover", spans=repr(list(ids)),
+                          reason=reason)
+            with tracing.span(STAGE_FAILOVER, cat="device",
+                              spans=repr(list(ids)), reason=reason):
+                result = self._failover_fn(ids, group.payloads)
+            t1 = self._mark(ids, STAGE_FAILOVER, "end")
+            self._observe(FAILOVER_HIST, t0, t1)
+            with self._lock:
+                self.stats.failovers += 1
+            _count(self._counters, "device.failover.spans", len(ids))
+            _count(self._counters, "device.failover.groups")
+            self._gate_release(group)
+            self._complete(group, ids, result)
+        except BaseException as e:  # noqa: BLE001 — surfaces via drain
+            if cause is not None and e is not cause:
+                e.__cause__ = cause
+            self._gate_release(group)
+            self._fail(e)
+
+    # -- watchdog monitor ----------------------------------------------------
+    def _watch_begin(self, group: _Group, ids: Tuple[Any, ...], stage: str,
+                     budget_ms: float) -> None:
+        if self._monitor is None or budget_ms <= 0:
+            return
+        with self._lock:
+            self._watch[id(group)] = (
+                group, ids, stage, self._clock() + budget_ms / 1000.0)
+
+    def _watch_end(self, group: _Group) -> None:
+        if self._monitor is None:
+            return
+        with self._lock:
+            self._watch.pop(id(group), None)
+
+    def _watchdog_loop(self) -> None:
+        while not self._monitor_stop.wait(self._poll_s):
+            now = self._clock()
+            expired: List[Tuple[_Group, Tuple[Any, ...], str]] = []
+            with self._lock:
+                for key, (group, ids, stage, deadline) in \
+                        list(self._watch.items()):
+                    if now >= deadline:
+                        del self._watch[key]
+                        expired.append((group, ids, stage))
+            for group, ids, stage in expired:
+                self._watchdog_fire(group, ids, stage)
+            if self._wedged:
+                self._drain_pending_failover()
+
+    def _watchdog_fire(self, group: _Group, ids: Tuple[Any, ...],
+                       stage: str) -> None:
+        if not self._claim(group):
+            return  # the attempt finished between expiry check and here
+        self._mark(ids, "device.watchdog", "fire")
+        self._abandoned = True
+        with self._lock:
+            self.stats.watchdog_fires += 1
+        _count(self._counters, "device.watchdog.fires")
+        _count(self._counters,
+               "device.watchdog.dispatch_fires"
+               if stage == STAGE_DISPATCH else
+               "device.watchdog.readback_fires")
+        tracing.event("device.watchdog.fired", stage=stage,
+                      spans=repr(list(ids)))
+        _flight.record(_flight.WATCHDOG, stage, a=len(ids))
+        _flight.auto_dump(f"device.watchdog.{stage}")
+        if stage == STAGE_DISPATCH:
+            # the staging thread is stuck inside dispatch_fn: no further
+            # group will ever be pulled — hand the queue to this monitor
+            with self._cv:
+                self._wedged = True
+                self._cv.notify_all()
+        if self._breaker is not None:
+            self._breaker.record_failure(self._counters)
+        self._failover_group(group, ids, reason=f"watchdog:{stage}")
+
+    def _drain_pending_failover(self) -> None:
+        """Monitor-thread path: with the staging thread wedged, pull the
+        remaining queued spans and complete them through failover (these
+        never passed the gate — no slot to release)."""
+        while True:
+            with self._cv:
+                if not self._pending:
+                    return
+                span_id, payload, _co = self._pending.popleft()
+            group = _Group([span_id], [payload])
+            group.claimed = True
+            _count(self._counters, "device.failover.drained")
+            self._failover_group(group, (span_id,), reason="staging-wedged")
+
+
+def _is_oom(exc: BaseException) -> bool:
+    from tez_tpu_torch.ops.device import is_resource_exhausted
+    return is_resource_exhausted(exc)
+
+
+def _is_fatal(exc: BaseException) -> bool:
+    from tez_tpu_torch.ops.device import is_kernel_fault
+    return isinstance(exc, (KeyboardInterrupt, SystemExit)) or \
+        is_kernel_fault(exc)
+
+
+def overlap_pairs(events: Sequence[Tuple[Any, str, str, float]]
+                  ) -> List[Tuple[Any, Any]]:
+    """Instrumentation helper: pairs (a, b) where span-group b's encode
+    started strictly before span-group a's dispatch COMPLETED (its readback
+    finished — the dispatch call itself returns as soon as its work is
+    enqueued, so D2H end is the completion edge).  This is the
+    pipeline's overlap witness; with the injectable clock it is
+    deterministic under a fake clock."""
+    complete: Dict[Any, float] = {}
+    encode_start: Dict[Any, float] = {}
+    order: List[Any] = []
+    for ids, stage, edge, t in events:
+        if stage == STAGE_D2H and edge == "end":
+            complete[ids] = t
+        elif stage == STAGE_ENCODE and edge == "start":
+            encode_start[ids] = t
+            order.append(ids)
+    out = []
+    for i, a in enumerate(order):
+        for b in order[i + 1:]:
+            if a in complete and b in encode_start and \
+                    encode_start[b] < complete[a]:
+                out.append((a, b))
+    return out

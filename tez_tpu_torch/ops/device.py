@@ -23,6 +23,7 @@ depend on them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -55,12 +56,42 @@ _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Resource exhausted",
                 "out of memory", "OOM", "device.dispatch.oom")
 
 
+def device_context(dev: torch.device):
+    """Context that makes `dev` the current CUDA device (a pipeline thread
+    never chose one); nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 def is_resource_exhausted(exc: BaseException) -> bool:
     """True when a device-attempt failure should take the OOM ladder."""
     if isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)):
         return True
     msg = str(exc)
     return any(m in msg for m in _OOM_MARKERS)
+
+
+#: Substrings of the CUDA runtime's error reports, which torch raises as
+#: RuntimeError (AcceleratorError in newer releases).
+_CUDA_ERROR_MARKERS = ("CUDA error", "CUDA driver error", "cudaError")
+
+
+def is_kernel_fault(exc: BaseException) -> bool:
+    """True when a device-attempt failure is a broken kernel (build, load
+    or launch) or a CUDA error other than out-of-memory, such as an
+    illegal address surfacing at an event's synchronize.  The containment
+    ladder never fails such a span over to the host: it would hide the
+    fault."""
+    if isinstance(exc, kernels.KernelError):
+        return True
+    if is_resource_exhausted(exc):
+        return False
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and \
+        any(m in str(exc) for m in _CUDA_ERROR_MARKERS)
 
 
 def uniform_clamped_lengths(lengths: np.ndarray, width_cap: int):
@@ -84,12 +115,7 @@ def _bucket(n: int, floor: int = 256) -> int:
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Host array -> tensor on `dev`; unsigned 32/64-bit columns travel as
     the signed type of the same width (same bits)."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    elif a.dtype == np.uint64:
-        a = a.view(np.int64)
-    return torch.from_numpy(a).to(dev)
+    return torch.from_numpy(_signed_view(np.ascontiguousarray(a))).to(dev)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -143,32 +169,216 @@ def _lsd_passes(partitions: torch.Tensor, lanes: torch.Tensor,
     return sorted_parts, perm[idx]
 
 
+# ---------------------------------------------------------------------------
+# the resident span sort as three stages (ops/async_stage.py pipeline):
+# stage (host bucket-pad + H2D), dispatch (kernels enqueued, no host
+# synchronisation), readback (wait on the span's own event).
+# hash_sort_span_resident runs them back to back on a one-slot
+# SpanStreams; the async plane runs them on different threads over one
+# SpanStreams of `depth` slots, so span k+1's staging overlaps span k's
+# sort.
+# ---------------------------------------------------------------------------
+#: byte alignment of the arrays carved out of one pinned staging slot
+_SLOT_ALIGN = 256
+#: numpy dtype -> the torch dtype of the same bits
+_TORCH_BITS = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
+               np.dtype(np.uint32): torch.int32, np.dtype(np.int64): torch.int64,
+               np.dtype(np.uint64): torch.int64}
+
+
+class SpanStreams:
+    """The CUDA streams and page-locked staging slots of one async pipeline.
+
+    H2D copies run on ``copy`` and the span sorts on ``compute``.  ``slots``
+    pinned host buffers are filled round robin, so pinning is paid once per
+    slot and not per span; a slot is never refilled before the copy that
+    last read it has completed (its event), and the pipeline's gate (at
+    most ``depth`` = ``slots`` spans past staging) means that wait is
+    normally already over.  On the CPU there are no streams and no slots:
+    staging hands numpy memory to torch as is."""
+
+    def __init__(self, device="cuda", slots: int = 2) -> None:
+        self.device = resolve_device(device)
+        self.cuda = self.device.type == "cuda"
+        self.copy = self.compute = None
+        self._slots: List[list] = []
+        if self.cuda:
+            with torch.cuda.device(self.device):
+                self.copy = torch.cuda.Stream()
+                self.compute = torch.cuda.Stream()
+            self._slots = [[None, None] for _ in range(max(1, slots))]
+        self._next = 0
+
+    def on(self, stream):
+        """Context: this pipeline's device and `stream` current."""
+        if not self.cuda:
+            return contextlib.nullcontext()
+        return _device_and_stream(self.device, stream)
+
+    def stage(self, specs, fill):
+        """Stage one span: `fill` writes the numpy views of one host buffer
+        per (shape, numpy dtype) of `specs`, which are then copied to the
+        device on the copy stream.  Returns (device tensors, ready event);
+        the compute stream waits on the event before it reads them.  On
+        the card the buffers are carved from the next pinned slot (u32/u64
+        as the signed torch type of the same width); on the CPU they are
+        fresh host memory, the result is their torch view and there is no
+        event.  Called by one thread at a time (the staging thread)."""
+        if not self.cuda:
+            host = [np.empty(shape, dtype=dtype) for shape, dtype in specs]
+            fill(*host)
+            return [torch.from_numpy(_signed_view(a)) for a in host], None
+        slot = self._slots[self._next]
+        self._next = (self._next + 1) % len(self._slots)
+        if slot[1] is not None:
+            slot[1].synchronize()      # the copy that last read this slot
+        sizes = [-(-int(np.prod(shape)) * np.dtype(dt).itemsize //
+                   _SLOT_ALIGN) * _SLOT_ALIGN for shape, dt in specs]
+        if slot[0] is None or slot[0].numel() < sum(sizes):
+            slot[0] = torch.empty(sum(sizes), dtype=torch.uint8,
+                                  pin_memory=True)
+        host, off = [], 0
+        for (shape, dt), size in zip(specs, sizes):
+            nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
+            host.append(slot[0][off:off + nbytes]
+                        .view(_TORCH_BITS[np.dtype(dt)]).view(shape))
+            off += size
+        fill(*[t.numpy().view(dt) for t, (_s, dt) in zip(host, specs)])
+        with self.on(self.copy):
+            dev = []
+            for h in host:
+                d = h.to(self.device, non_blocking=True)
+                # allocated on the copy stream, read on the compute stream:
+                # without this the caching allocator could hand the block
+                # out again while a kernel still reads it
+                d.record_stream(self.compute)
+                dev.append(d)
+            ready = torch.cuda.Event()
+            ready.record(self.copy)
+        slot[1] = ready
+        return dev, ready
+
+
+@contextlib.contextmanager
+def _device_and_stream(dev: torch.device, stream):
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        yield
+
+
+def _signed_view(a: np.ndarray) -> np.ndarray:
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    if a.dtype == np.uint64:
+        return a.view(np.int64)
+    return a
+
+
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    """Page-locked host tensor shaped as device tensor `t` (a readback
+    target; the caching host allocator recycles it once freed)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+def _read_async(tensors: Sequence[torch.Tensor]):
+    """Enqueue D2H copies of `tensors` into page-locked host tensors on the
+    current stream and record an event after them: (host tensors, event).
+    On the CPU the tensors themselves and no event."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return list(tensors), None
+    out = []
+    for t in tensors:
+        h = _pinned_like(t)
+        h.copy_(t, non_blocking=True)
+        out.append(h)
+    done = torch.cuda.Event()
+    done.record()
+    return out, done
+
+
+def stage_resident_span(lanes: np.ndarray, lengths: np.ndarray,
+                        streams: SpanStreams):
+    """Host bucket-pad + H2D upload of a resident span (n > 0 rows): the
+    rows are padded straight into the next pinned slot of `streams` and
+    copied on its copy stream.  Returns (lanes, lengths, n,
+    skip_length_pass, ready event)."""
+    n = lanes.shape[0]
+    uniform, _pad = uniform_clamped_lengths(lengths, lanes.shape[1] * 4 + 1)
+    nb = _bucket(n)
+
+    def fill(hl, hn):
+        hl[:n] = lanes
+        hl[n:] = 0xFFFFFFFF
+        hn[:n] = lengths
+        hn[n:] = -1
+
+    (lanes_t, lens_t), ready = streams.stage(
+        [((nb, lanes.shape[1]), np.uint32), ((nb,), np.int32)], fill)
+    return lanes_t, lens_t, n, uniform, ready
+
+
+def dispatch_resident_span(staged, num_partitions: int,
+                           streams: SpanStreams):
+    """Enqueue the resident sort of a staged span (see _dispatch_resident).
+    Out of device memory, it raises a fresh OutOfMemoryError: the failed
+    attempt's traceback would otherwise keep its frames' intermediates
+    (and the staged span) allocated while the out-of-memory ladder retries
+    the span in halves on the device."""
+    try:
+        return _dispatch_resident(staged, num_partitions, streams)
+    except torch.cuda.OutOfMemoryError as e:
+        msg = str(e)
+    del staged
+    raise torch.cuda.OutOfMemoryError(msg)
+
+
+def _dispatch_resident(staged, num_partitions: int, streams: SpanStreams):
+    """Enqueue the resident sort of a staged span: the lane hash kernel,
+    the stable LSD passes, the gathers of the sorted key columns and the
+    D2H copies of (sorted partitions, permutation) into pinned memory, on
+    the compute stream of `streams`.  Nothing
+    here waits on the card: no .cpu()/.item(), no data-dependent shape.
+    Returns (host partitions, host perm, sorted lanes, sorted lengths, n,
+    done event); readback_resident_span waits on the event."""
+    lanes_t, lens_t, n, uniform, ready = staged
+    with streams.on(streams.compute):
+        if ready is not None:
+            torch.cuda.current_stream().wait_event(ready)
+        partitions = kernels.fnv_hash_lanes(lanes_t, lens_t, num_partitions)
+        # uniform real lengths make the length pass an identity reorder even
+        # with tail sentinels present: the partition pass places those
+        sp, perm = _lsd_passes(partitions, lanes_t, lens_t,
+                               skip_length_pass=uniform)
+        out_lanes, out_lens = lanes_t[perm], lens_t[perm]
+        (sp_h, perm_h), done = _read_async([sp[:n], perm[:n]])
+    return sp_h, perm_h, out_lanes, out_lens, n, done
+
+
+def readback_resident_span(inflight):
+    """Wait for one dispatched span (its own event, never the whole card)
+    and return host (sorted partitions, permutation) plus the device view
+    (sorted lanes, sorted lengths, 0, n), as hash_sort_span_resident."""
+    sp_h, perm_h, out_lanes, out_lens, n, done = inflight
+    if done is not None:
+        done.synchronize()
+    return sp_h.numpy(), perm_h.numpy(), (out_lanes, out_lens, 0, n)
+
+
 def hash_sort_span_resident(lanes: np.ndarray, lengths: np.ndarray,
                             num_partitions: int, device="cuda"):
     """Resident span sort: upload lanes + lengths only, hash the partition
     from the lanes on the device, stable (partition, lanes, length) sort.
     Returns host (sorted partitions, permutation) plus the device view
     (sorted lanes, sorted lengths, 0, n) whose rows >= n are tail
-    sentinels.  Caller guarantees every true length fits the lanes."""
-    dev = resolve_device(device)
-    n = lanes.shape[0]
-    if n == 0:
+    sentinels.  Caller guarantees every true length fits the lanes.  The
+    three stages back to back, through a one-slot SpanStreams: the pinned
+    slot comes from torch's caching host allocator, so pinning is paid
+    once per span size, not per call."""
+    streams = SpanStreams(device, slots=1)
+    if lanes.shape[0] == 0:
         return (np.zeros(0, np.int32), np.zeros(0, np.int64), None)
-    uniform, _pad = uniform_clamped_lengths(lengths, lanes.shape[1] * 4 + 1)
-    nb = _bucket(n)
-    lengths = lengths.astype(np.int32)
-    if nb != n:
-        lanes = np.pad(lanes, ((0, nb - n), (0, 0)),
-                       constant_values=np.uint32(0xFFFFFFFF))
-        lengths = np.pad(lengths, (0, nb - n), constant_values=-1)
-    lanes_t, lens_t = _upload(lanes, dev), _upload(lengths, dev)
-    partitions = kernels.fnv_hash_lanes(lanes_t, lens_t, num_partitions)
-    # uniform real lengths make the length pass an identity reorder even
-    # with tail sentinels present: the partition pass places those
-    sp, perm = _lsd_passes(partitions, lanes_t, lens_t,
-                           skip_length_pass=uniform)
-    dev_keys = (lanes_t[perm], lens_t[perm], 0, n)
-    return _host(sp[:n]), _host(perm[:n]), dev_keys
+    return readback_resident_span(dispatch_resident_span(
+        stage_resident_span(lanes, lengths, streams), num_partitions,
+        streams))
 
 
 def _slice_to_bucket(lanes: torch.Tensor, lengths: torch.Tensor, lo: int,
@@ -224,6 +434,15 @@ def merge_resident_slices(slices, kernel: str = "merge_path") -> np.ndarray:
     width = max(l.shape[1] for (l, _n, _lo, _hi) in slices)
     lanes_list, lens_list = [], []
     for (lanes, lens, lo, hi) in slices:
+        if lanes.is_cuda:
+            # An async span's key columns were made on its pipeline's
+            # compute stream (their readback waited on that stream's event,
+            # so they are complete).  Record this stream's use of them:
+            # otherwise the caching allocator could recycle their blocks
+            # for the compute stream while this merge still reads them.
+            cur = torch.cuda.current_stream(lanes.device)
+            lanes.record_stream(cur)
+            lens.record_stream(cur)
         sl, ln = _slice_to_bucket(lanes, lens, lo, hi - lo, common, width)
         lanes_list.append(sl)
         lens_list.append(ln)

@@ -35,6 +35,7 @@ unsigned order of ``x``) and never widen them, so the 0xFFFFFFFF sentinel
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import torch
@@ -47,6 +48,7 @@ _SIGN_BIT = -2 ** 31
 #: kernel launches per wrapper; reset with reset_launches()
 launches: Dict[str, int] = {"fnv_hash_bytes": 0, "fnv_hash_lanes": 0,
                             "merge_rank": 0, "merge_path_pair": 0}
+_launches_lock = threading.Lock()
 
 #: CTA shape of the merge-path tile kernel: threads, and output rows each
 #: thread merges (a tile is their product); and the lanes that search one
@@ -77,13 +79,33 @@ _RESTYPES = {"tez_merge_path_tile": ctypes.c_longlong,
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch.  This is a broken kernel,
+    not a transient device fault: no containment ladder may send its span
+    to the host (ops/async_stage.py poisons the pipeline on it)."""
+
+
+def load(names=("fnv_hash", "merge_path")) -> None:
+    """Build and load the named kernel libraries now (default: those of the
+    map-side path), so that a pipeline never builds one inside a stage."""
+    from tez_tpu_torch.ops import _build
+    try:
+        _build.load(names)
+    except Exception as e:
+        raise KernelError(f"kernel build failed: {e}") from e
 
 
 def _entry(lib_name: str, fn_name: str):
     from tez_tpu_torch.ops import _build
-    fn = getattr(_build.library(lib_name), fn_name)
+    try:
+        fn = getattr(_build.library(lib_name), fn_name)
+    except Exception as e:
+        raise KernelError(f"{fn_name}: kernel unavailable: {e}") from e
     fn.argtypes = _ARGTYPES[fn_name]
     fn.restype = _RESTYPES.get(fn_name, ctypes.c_int)
     return fn
@@ -93,8 +115,11 @@ def _launch(counter: str, lib_name: str, fn_name: str, *args) -> None:
     rc = _entry(lib_name, fn_name)(
         *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
-    launches[counter] += 1
+        raise KernelError(f"{fn_name} launch failed: cudaError {rc}")
+    # the async span plane launches from its staging thread and from
+    # readback workers at once: the count is exact only under the lock
+    with _launches_lock:
+        launches[counter] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,

@@ -104,6 +104,12 @@ class KVBatch:
     val_offsets: np.ndarray
     dev_keys: Optional[tuple] = dataclasses.field(
         default=None, compare=False, repr=False)
+    #: producer promise: keys in this batch are already unique (e.g. a
+    #: fused tokenize+count aggregator), so the sorter skips its pre-sort
+    #: hash combine for spans made only of such batches.  Dropped (False)
+    #: by take() and concat(), like dev_keys.
+    pre_combined: bool = dataclasses.field(
+        default=False, compare=False, repr=False)
 
     @property
     def num_records(self) -> int:

@@ -1,19 +1,27 @@
 """Device sorter: PipelinedSorter semantics on the port's CUDA kernels.
 
-The synchronous path of tez_tpu/ops/sorter.py: records collect into spans;
-each full span is sorted on the device (hash partition + stable
-(partition, key) sort); flush merges the spans.  Sorted key columns stay on
-the device as ``Run.batch.dev_keys`` so a merge of fresh runs ranks them in
-place (the resident merge); runs without them take the generic merge-path
-merge.  Rows whose keys exceed the lane width get a host tie-break pass, so
-the final order is full raw-byte order for any key length.
+tez_tpu/ops/sorter.py's DeviceSorter: records collect into spans; each
+full span is sorted on the device (hash partition + stable (partition,
+key) sort); flush merges the spans.  Sorted key columns stay on the device
+as ``Run.batch.dev_keys`` so a merge of fresh runs ranks them in place (the
+resident merge); runs without them take the generic merge-path merge.
+Rows whose keys exceed the lane width get a host tie-break pass, so the
+final order is full raw-byte order for any key length.
 
-Not ported yet (a caller that asks for them gets NotImplementedError): the
-async span plane (pipeline_depth > 0) and its containment ladder, host
-spill (spill_dir), and custom key normalizers.
+With ``pipeline_depth > 0`` (the library's default, 2) spans go through
+the async span plane (ops/async_stage.py): span k+1's host encode and H2D
+copy overlap span k's sort on the card and span k-1's readback, with the
+containment ladder (out-of-memory split, host failover, watchdog, circuit
+breaker) around every device attempt.  Runs complete out of order and are
+put back in spill order at flush, so the result is bit-exact with the
+synchronous engine.
+
+Not ported yet (a caller that asks for them gets NotImplementedError):
+host spill (spill_dir) and custom key normalizers.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -22,10 +30,11 @@ import numpy as np
 from tez_tpu_torch.common import metrics
 from tez_tpu_torch.common.counters import TaskCounter, TezCounters
 from tez_tpu_torch.ops import device as device_ops
+from tez_tpu_torch.ops import kernels
 from tez_tpu_torch.ops.keycodec import matrix_to_lanes, pad_to_matrix
 from tez_tpu_torch.ops.runformat import (KVBatch, Run, adjacent_equal_rows,
                                          gather_ragged)
-from tez_tpu_torch.ops.serde import encode_longs_be
+from tez_tpu_torch.ops.serde import decode_longs_be, encode_longs_be
 
 
 def _exact_tiebreak(lengths: np.ndarray, partitions: np.ndarray,
@@ -83,6 +92,7 @@ class SpanBuffer:
         self.nbytes = 0
         self.batches: List[KVBatch] = []
         self._partitioned: Optional[bool] = None   # set by the first add
+        self.all_pre_combined = True   # every added batch promised unique keys
 
     def _set_mode(self, partitioned: bool) -> None:
         if self._partitioned is None:
@@ -95,6 +105,7 @@ class SpanBuffer:
     def add(self, key: bytes, value: bytes,
             partition: Optional[int] = None) -> None:
         self._set_mode(partition is not None)
+        self.all_pre_combined = False
         self.keys.append(key)
         self.vals.append(value)
         if partition is not None:
@@ -103,6 +114,8 @@ class SpanBuffer:
 
     def add_batch(self, batch: KVBatch) -> None:
         self._set_mode(False)
+        if not batch.pre_combined:
+            self.all_pre_combined = False
         self.batches.append(batch)
         self.nbytes += batch.nbytes
 
@@ -128,6 +141,14 @@ DEVICE_SORT_MIN_RECORDS = 1 << 16
 #: Auto-engine floor on a span's total key bytes for the device path (only
 #: consulted when the engine was requested as `auto`).
 ENGINE_MIN_KEY_BYTES = 1 << 20
+
+#: Failure-containment defaults of the async device plane (tez_tpu's, which
+#: its library overrides from the tez.runtime.device.* knobs).
+DEVICE_WATCHDOG_DISPATCH_MS = 60_000.0
+DEVICE_WATCHDOG_READBACK_MS = 60_000.0
+DEVICE_BREAKER_FAILURES = 3
+DEVICE_BREAKER_COOLDOWN_MS = 5_000.0
+DEVICE_SPLIT_MIN_BYTES = 1 << 20
 
 
 def resolve_engine(engine: str) -> str:
@@ -161,7 +182,7 @@ def _record_ms(name: str, counters: Optional[TezCounters],
 
 
 class DeviceSorter:
-    """The OrderedPartitionedKVOutput engine (synchronous spans)."""
+    """The OrderedPartitionedKVOutput engine."""
 
     def __init__(self, num_partitions: int, key_width: int = 16,
                  span_budget_bytes: int = 256 << 20,
@@ -170,15 +191,21 @@ class DeviceSorter:
                  combiner: Optional[Combiner] = None,
                  partitioner: str = "hash",
                  engine: str = "device",
+                 sort_threads: int = 0,
                  merge_factor: int = 64,
                  key_normalizer: Optional[Callable[[bytes], bytes]] = None,
                  resident_keys: bool = True,
                  device_min_records: int = DEVICE_SORT_MIN_RECORDS,
                  engine_min_bytes: int = ENGINE_MIN_KEY_BYTES,
                  pipeline_depth: int = 0,
+                 pipeline_coalesce_records: int = -1,
+                 watchdog_dispatch_ms: float = DEVICE_WATCHDOG_DISPATCH_MS,
+                 watchdog_readback_ms: float = DEVICE_WATCHDOG_READBACK_MS,
+                 breaker_failures: int = DEVICE_BREAKER_FAILURES,
+                 breaker_cooldown_ms: float = DEVICE_BREAKER_COOLDOWN_MS,
+                 split_min_bytes: int = DEVICE_SPLIT_MIN_BYTES,
+                 breaker=None,
                  device="cuda"):
-        if pipeline_depth > 0:
-            raise _not_ported("the async span plane (pipeline_depth > 0)")
         if spill_dir is not None:
             raise _not_ported("host spill (spill_dir)")
         if key_normalizer is not None:
@@ -191,6 +218,30 @@ class DeviceSorter:
         self._auto_engine = engine == "auto"
         self.engine_min_bytes = engine_min_bytes
         self.device_min_records = device_min_records
+        #: async double-buffered span plane (ops/async_stage.py): span
+        #: k+1's host encode/H2D overlaps span k's sort while span k-1's
+        #: readback drains; runs complete out of order and are put back in
+        #: spill order at flush.  0 = synchronous spans (host engines keep
+        #: it off: nothing leaves the host to overlap).
+        self.pipeline_depth = pipeline_depth if self.engine == "device" else 0
+        #: span-batching budget (records): small adjacent spans coalesce
+        #: into one dispatch while their sum fits.  -1 = device_min_records
+        #: (the spans too small to be worth a dispatch each), 0 = off.
+        self.pipeline_coalesce_records = (
+            device_min_records if pipeline_coalesce_records < 0
+            else pipeline_coalesce_records)
+        self._pipeline = None
+        self._streams = None
+        self._async_store_ids: List[int] = []
+        #: failure containment of the async plane: watchdog deadlines,
+        #: host-engine failover through the circuit breaker, the OOM split
+        #: floor.  breaker=None = the sticky per-process breaker.
+        self.watchdog_dispatch_ms = watchdog_dispatch_ms
+        self.watchdog_readback_ms = watchdog_readback_ms
+        self.breaker_failures = breaker_failures
+        self.breaker_cooldown_ms = breaker_cooldown_ms
+        self.split_min_bytes = split_min_bytes
+        self._breaker = breaker
         #: keep sorted key lanes on the device for downstream merges
         self.resident_keys = resident_keys
         self.span_budget = span_budget_bytes
@@ -201,10 +252,24 @@ class DeviceSorter:
         self.partitioner = partitioner
         #: bounded k-way merge width (reference: io.sort.factor)
         self.merge_factor = merge_factor
+        #: background span sorting (the "sortmaster": collection continues
+        #: while a full span sorts).  One worker: the collector thread owns
+        #: the OUTPUT_* counters, the sortmaster the sort/merge/spill ones,
+        #: and on_spill consumers need not be re-entrant.
+        self._executor = None
+        if sort_threads > 0:
+            import concurrent.futures
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="sortmaster")
+        self._pending = []
+        self._store_lock = threading.Lock()
         self._span = SpanBuffer()
         self._runs: List[Run] = []
         self._closed = False
         self.num_spills = 0
+        #: pipelined shuffle: each span's run ships through this hook as
+        #: on_spill(run, spill_id) instead of being kept for the merge
+        self.on_spill: Optional[Callable[[Run, int], None]] = None
 
     # -- write side ----------------------------------------------------------
     def write(self, key: bytes, value: bytes,
@@ -227,22 +292,339 @@ class DeviceSorter:
             self._sort_span()
 
     # -- span sort -----------------------------------------------------------
+    def _precombine(self, batch: KVBatch,
+                    custom_parts: Optional[np.ndarray],
+                    skip: bool = False) -> KVBatch:
+        """Hash-combine before the sort when the combiner allows it: with
+        sum_long_combiner and fixed 8-byte long values, equal keys collapse
+        to one record (first-occurrence order) so the sort sees each key
+        once.  The post-sort combiner still runs (idempotent for sum) and
+        covers the spans this step declines."""
+        if skip or self.combiner is not sum_long_combiner or \
+                custom_parts is not None:
+            return batch
+        n = batch.num_records
+        if n < 2:
+            return batch
+        if not bool(np.all(np.diff(batch.val_offsets) == 8)):
+            return batch   # long-serde fixed-8 values only
+        from tez_tpu_torch.ops.native import hash_sum_native
+        first_idx, sums = hash_sum_native(
+            batch.key_bytes, batch.key_offsets,
+            decode_longs_be(batch.val_bytes, n))
+        kb2, ko2 = gather_ragged(batch.key_bytes, batch.key_offsets,
+                                 first_idx)
+        vb = encode_longs_be(sums)
+        vo = np.arange(len(sums) + 1, dtype=np.int64) * 8
+        self.counters.increment(TaskCounter.COMBINE_INPUT_RECORDS, n)
+        self.counters.increment(TaskCounter.COMBINE_OUTPUT_RECORDS,
+                                len(sums))
+        return KVBatch(kb2, ko2, vb, vo)
+
+    def _take_span(self):
+        """Hand the current span over as (batch, custom partitions, skip
+        the precombine) and start a fresh one.  A span made of one
+        pre-combined batch has nothing for the hash pass to collapse."""
+        span, self._span = self._span, SpanBuffer()
+        custom_parts = np.asarray(span.parts, dtype=np.int32) \
+            if span.parts else None
+        skip_pre = span.all_pre_combined and len(span.batches) == 1
+        return span.to_batch(), custom_parts, skip_pre
+
     def _finalize_span(self) -> Run:
         """Sort + combine the current span."""
-        batch = self._span.to_batch()
-        custom_parts = np.asarray(self._span.parts, dtype=np.int32) \
-            if self._span.parts else None
-        self._span = SpanBuffer()
+        batch, custom_parts, skip_pre = self._take_span()
+        batch = self._precombine(batch, custom_parts, skip=skip_pre)
         run = self.sort_batch(batch, custom_partitions=custom_parts)
         if self.combiner is not None:
             run = self.combiner(run)
         self.num_spills += 1
         return run
 
+    # -- async double-buffered span plane ------------------------------------
+    def _ensure_pipeline(self):
+        if self._pipeline is None:
+            from tez_tpu_torch.ops.async_stage import (AsyncSpanPipeline,
+                                                       process_breaker)
+            breaker = self._breaker
+            if breaker is None:
+                breaker = process_breaker()
+                breaker.configure(failures=self.breaker_failures,
+                                  cooldown_ms=self.breaker_cooldown_ms)
+            if self.device.type == "cuda":
+                # build before any span: a build failure then raises here,
+                # never inside a stage's watchdog window or ladder
+                kernels.load()
+            # one pinned staging slot per span the gate lets past staging
+            self._streams = device_ops.SpanStreams(
+                self.device, slots=self.pipeline_depth)
+            self._pipeline = AsyncSpanPipeline(
+                encode_fn=self._async_encode,
+                stage_fn=self._async_h2d,
+                dispatch_fn=self._async_dispatch,
+                readback_fn=self._async_readback,
+                coalesce_fn=self._async_coalesce,
+                records_fn=lambda p: p["batch"].num_records,
+                on_complete=self._async_complete,
+                depth=self.pipeline_depth,
+                coalesce_records=self.pipeline_coalesce_records,
+                counters=self.counters,
+                name="sorter-pipeline",
+                failover_fn=self._async_failover,
+                oom_retry_fn=self._async_oom_retry,
+                breaker=breaker,
+                watchdog_dispatch_ms=self.watchdog_dispatch_ms,
+                watchdog_readback_ms=self.watchdog_readback_ms)
+        return self._pipeline
+
+    def _group_batch(self, ids, payloads) -> Tuple[KVBatch,
+                                                   Optional[np.ndarray]]:
+        """Rebuild one dispatch group's span from its raw payloads (the
+        failover and retry paths re-run the precombine: the device
+        attempt's encode results died with the attempt)."""
+        batches = [self._precombine(p["batch"], p["custom_parts"],
+                                    skip=p["skip_pre"]) for p in payloads]
+        batch = batches[0] if len(batches) == 1 else KVBatch.concat(batches)
+        # coalesced groups never carry custom partitions (_submit_span_async
+        # excludes them from coalescing)
+        custom_parts = payloads[0]["custom_parts"] if len(payloads) == 1 \
+            else None
+        return batch, custom_parts
+
+    def _async_failover(self, ids, payloads) -> Run:
+        """Host-engine failover for a failed device attempt (watchdog fire,
+        device exception, breaker short-circuit): bit-exact with the device
+        path."""
+        batch, custom_parts = self._group_batch(ids, payloads)
+        run = self.sort_batch(batch, custom_partitions=custom_parts,
+                              engine="host")
+        if self.combiner is not None:
+            run = self.combiner(run)
+        return run
+
+    def _async_oom_retry(self, ids, payloads) -> Run:
+        """Out-of-memory ladder: evict, then split.  Registered pressure
+        hooks reclaim device memory first and the whole span retries on
+        the device; only when nothing was evictable (the port registers no
+        hook yet), or the whole-span retry runs out of memory again, is the
+        span halved (recursively, down to split_min_bytes) before the host
+        engine takes over.  Merging the stably sorted halves with run-age
+        tie order equals the stable sort of the whole span."""
+        from tez_tpu_torch.ops import async_stage
+        batch, custom_parts = self._group_batch(ids, payloads)
+        if self.device.type == "cuda":
+            import torch
+            # a real OutOfMemoryError leaves the failed attempt's blocks
+            # cached on its streams: hand them back before the retry
+            torch.cuda.empty_cache()
+        freed = async_stage.relieve_pressure(batch.nbytes, self.counters)
+        # the retry runs on a pipeline thread: make the sorter's device
+        # current for its kernels' streams
+        with device_ops.device_context(self.device):
+            if freed > 0:
+                try:
+                    run = self.sort_batch(batch,
+                                          custom_partitions=custom_parts,
+                                          engine="device")
+                    if self.combiner is not None:
+                        run = self.combiner(run)
+                    return run
+                except BaseException as e:  # noqa: BLE001 -- ladder goes on
+                    if not device_ops.is_resource_exhausted(e):
+                        raise
+            run = self._split_device_sort(batch, custom_parts,
+                                          detail=f"span={min(ids)}")
+        if self.combiner is not None:
+            run = self.combiner(run)
+        return run
+
+    def _split_device_sort(self, batch: KVBatch,
+                           custom_parts: Optional[np.ndarray],
+                           detail: str) -> Run:
+        from tez_tpu_torch.common import faults
+        n = batch.num_records
+        nbytes = int(batch.key_offsets[-1]) + int(batch.val_offsets[-1])
+        if n < 2 or nbytes <= self.split_min_bytes:
+            # at the floor: decline the retry -- the caller's ladder sends
+            # the span to the host engine
+            raise MemoryError(
+                f"span at OOM-split floor ({nbytes}B <= "
+                f"{self.split_min_bytes}B, n={n})")
+        h = n // 2
+        runs: List[Run] = []
+        for lo, hi in ((0, h), (h, n)):
+            half = batch.take(np.arange(lo, hi, dtype=np.int64))
+            parts_half = custom_parts[lo:hi] if custom_parts is not None \
+                else None
+            try:
+                if faults.armed():
+                    faults.fire("device.dispatch.oom",
+                                f"{detail}:split[{lo}:{hi})")
+                runs.append(self.sort_batch(half,
+                                            custom_partitions=parts_half,
+                                            engine="device"))
+                continue
+            except BaseException as e:  # noqa: BLE001 -- recurse on OOM only
+                if not device_ops.is_resource_exhausted(e):
+                    raise
+            # recurse outside the handler: the failed attempt's traceback
+            # (and the device memory its frames hold) is gone by now
+            runs.append(self._split_device_sort(half, parts_half, detail))
+        # run-age tie order makes the merge of the stably sorted halves
+        # identical to the stable sort of the concatenated span
+        return merge_sorted_runs(runs, self.num_partitions, self.key_width,
+                                 counters=self.counters, engine="device",
+                                 device_min_records=self.device_min_records,
+                                 device=self.device)
+
+    def _submit_span_async(self) -> None:
+        batch, custom_parts, skip_pre = self._take_span()
+        spill_id = self.num_spills
+        self.num_spills += 1
+        # pipelined mode keeps one span per spill_id (consumers track spill
+        # ids); store mode may coalesce -- the joint stable sort of adjacent
+        # spans equals the merge of their individual sorts (ties keep
+        # arrival order), so the flush merge's output is unchanged
+        coalesce = self.on_spill is None and custom_parts is None
+        self._ensure_pipeline().submit(
+            spill_id,
+            {"batch": batch, "custom_parts": custom_parts,
+             "skip_pre": skip_pre},
+            coalesce=coalesce)
+
+    def _async_encode(self, payload: dict) -> dict:
+        """Staging thread: precombine + host ragged->lane encode (the
+        resident path's host work), overlapped with in-flight sorts."""
+        batch = self._precombine(payload["batch"], payload["custom_parts"],
+                                 skip=payload["skip_pre"])
+        custom_parts = payload["custom_parts"]
+        engine = self._span_engine(batch)
+        if custom_parts is None and self.partitioner == "hash" and \
+                engine != "host" and self.resident_keys and \
+                batch.num_records > 0:
+            klens = batch.key_offsets[1:] - batch.key_offsets[:-1]
+            wmax = int(klens.max(initial=1))
+            if wmax <= self.key_width:
+                eff = ((max(wmax, 1) + 3) // 4) * 4
+                mat, lengths = pad_to_matrix(batch.key_bytes,
+                                             batch.key_offsets, eff)
+                return {"kind": "resident", "batch": batch,
+                        "lanes": matrix_to_lanes(mat), "lengths": lengths}
+        return {"kind": "generic", "batch": batch,
+                "custom_parts": custom_parts}
+
+    def _async_coalesce(self, staged_list: List[dict]) -> dict:
+        batch = KVBatch.concat([s["batch"] for s in staged_list])
+        if all(s["kind"] == "resident" for s in staged_list):
+            width = max(s["lanes"].shape[1] for s in staged_list)
+            # widening narrower views with ZERO lanes preserves order:
+            # bytes beyond a key's length are zero in the lane encoding
+            lanes = np.concatenate([
+                s["lanes"] if s["lanes"].shape[1] == width else
+                np.pad(s["lanes"], ((0, 0), (0, width - s["lanes"].shape[1])))
+                for s in staged_list])
+            lengths = np.concatenate([s["lengths"] for s in staged_list])
+            return {"kind": "resident", "batch": batch,
+                    "lanes": lanes, "lengths": lengths}
+        return {"kind": "generic", "batch": batch, "custom_parts": None}
+
+    def _async_h2d(self, staged: dict) -> dict:
+        if staged["kind"] == "resident":
+            staged["staged_dev"] = device_ops.stage_resident_span(
+                staged["lanes"], staged["lengths"], self._streams)
+        return staged
+
+    def _async_dispatch(self, staged: dict) -> dict:
+        t0 = time.time()
+        if staged["kind"] == "resident":
+            # the dict lets go of the staged tensors: after a failed
+            # dispatch nothing holds them while the ladder retries
+            inflight = device_ops.dispatch_resident_span(
+                staged.pop("staged_dev"), self.num_partitions,
+                streams=self._streams)
+            return {"kind": "resident", "batch": staged["batch"],
+                    "inflight": inflight, "t0": t0}
+        # generic spans (custom partitioner / host-routed / over-width
+        # keys): the whole synchronous span sort runs here on the staging
+        # thread, still overlapped with other spans' readback, on the
+        # sorter's device and its compute stream (a fresh thread's current
+        # device is the first card)
+        with self._streams.on(self._streams.compute):
+            run = self.sort_batch(staged["batch"],
+                                  custom_partitions=staged["custom_parts"])
+        return {"kind": "generic", "run": run, "t0": t0}
+
+    def _async_readback(self, inflight: dict, ids) -> Run:
+        if inflight["kind"] == "resident":
+            sp, perm, dev = device_ops.readback_resident_span(
+                inflight["inflight"])
+            sorted_batch = inflight["batch"].take(perm)
+            sorted_batch.dev_keys = dev
+            self._record_sort_ms(inflight["t0"])
+            run = Run.from_sorted_batch(sorted_batch, sp,
+                                        self.num_partitions)
+        else:
+            run = inflight["run"]
+        if self.combiner is not None:
+            run = self.combiner(run)
+        return run
+
+    def _async_complete(self, ids, run: Run) -> None:
+        """Completion callback: fires in completion order (out of order
+        under delays); coalesced groups complete under their first spill
+        id."""
+        sid = min(ids)
+        if self.on_spill is not None:
+            self.on_spill(run, sid)
+        else:
+            with self._store_lock:
+                self._store_run(run)
+                self._async_store_ids.append(sid)
+
+    def _drain_async(self) -> None:
+        """Block until every submitted span completed, then restore spill-id
+        order over the stored runs so the flush merge sees the run sequence
+        of the synchronous engine (stable ties = run order)."""
+        pipe, self._pipeline = self._pipeline, None
+        if pipe is not None:
+            pipe.drain()
+        if self._async_store_ids:
+            order = sorted(range(len(self._async_store_ids)),
+                           key=lambda i: self._async_store_ids[i])
+            self._runs = [self._runs[i] for i in order]
+            self._async_store_ids = []
+
     def _sort_span(self) -> None:
         if self._span.num_records == 0:
             return
-        self._store_run(self._finalize_span())
+        if self.pipeline_depth > 0:
+            self._submit_span_async()
+            return
+        if self._executor is not None:
+            # hand the full span to the sortmaster; keep collecting
+            batch, custom_parts, skip_pre = self._take_span()
+            spill_id = self.num_spills
+            self.num_spills += 1
+
+            def _bg() -> None:
+                pre = self._precombine(batch, custom_parts, skip=skip_pre)
+                run = self.sort_batch(pre, custom_partitions=custom_parts)
+                if self.combiner is not None:
+                    run = self.combiner(run)
+                if self.on_spill is not None:
+                    self.on_spill(run, spill_id)
+                else:
+                    with self._store_lock:
+                        self._store_run(run)
+
+            self._pending.append(self._executor.submit(_bg))
+            return
+        run = self._finalize_span()
+        if self.on_spill is not None:
+            # pipelined shuffle: each span ships immediately
+            self.on_spill(run, self.num_spills - 1)
+        else:
+            self._store_run(run)
 
     def _span_engine(self, batch: KVBatch) -> str:
         key_nbytes = int(batch.key_offsets[-1]) if self._auto_engine else -1
@@ -346,15 +728,60 @@ class DeviceSorter:
                                 run.batch.num_records)
         self._runs.append(run)
 
+    def _drain_pending(self) -> None:
+        """Join the sortmaster (its workers stored or shipped their runs
+        already).  The executor always shuts down; then the first worker
+        error re-raises."""
+        error: Optional[BaseException] = None
+        try:
+            for fut in self._pending:
+                try:
+                    fut.result()
+                except BaseException as e:  # noqa: BLE001
+                    if error is None:
+                        error = e
+        finally:
+            self._pending = []
+            if self._executor is not None:
+                self._executor.shutdown(wait=True)
+                self._executor = None
+        if error is not None:
+            raise error
+
     # -- flush ---------------------------------------------------------------
-    def flush(self) -> Run:
-        """Final merge of all spans into one partition-sorted Run."""
+    def flush(self) -> Optional[Run]:
+        """Final merge of all spans into one partition-sorted Run; None in
+        pipelined mode (on_spill set).  The same as flush_run until host
+        spill is ported."""
+        return self.flush_run()
+
+    def flush_run(self) -> Optional[Run]:
+        """Final merge of all spans.  Returns None in pipelined mode (spans
+        already shipped through on_spill; a trailing partial span ships
+        here)."""
         if self._closed:
             raise RuntimeError("DeviceSorter already flushed")
         self._closed = True
-        if self._span.num_records > 0 and not self._runs:
-            return self._finalize_span()    # everything fit one span
-        self._sort_span()
+        if self.pipeline_depth > 0:
+            # async plane: the trailing span submits like any other, then
+            # the drain barrier collects out-of-order completions and
+            # restores spill-id order
+            self._sort_span()
+            self._drain_async()
+            self._drain_pending()   # no-op unless the sortmaster ran
+            if self.on_spill is not None:
+                return None
+        elif self.on_spill is not None:
+            if self._span.num_records > 0:
+                self._sort_span()
+            self._drain_pending()
+            return None
+        else:
+            if self._span.num_records > 0 and not self._runs and \
+                    not self._pending:
+                return self._finalize_span()    # everything fit one span
+            self._sort_span()
+            self._drain_pending()
         runs, self._runs = self._runs, []
         if not runs:
             return Run(KVBatch.empty(),

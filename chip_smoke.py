@@ -44,12 +44,24 @@ Phases, each checked, none allowed to fail:
    device.dispatch.oom, device.readback.fail, device.dispatch.hang (a 60 s
    hang against a 500 ms watchdog) and a breaker of 2 failures tripped by
    two readback failures; every flush byte-identical to the fault-free
-   one, each with its DeviceFailover counters moved.
+   one, each with its DeviceFailover counters moved;
+8. the spilling map side at the repo's spill-benchmark scale
+   (tez_tpu/tools/spill_bench.py, SPILL_r05.json): 4 producers, each
+   writing 512 MB of KV (1-16 byte Zipf(1.3) words over a 2,000,000-word
+   vocabulary, each value the record's index as a big-endian long, no
+   combiner) into DeviceSorter(num_partitions=4, key_width=16, 64 MB
+   spans, pipeline_depth=2) with the default memory budget and a spill
+   directory, so most spans go to disk and flush_run streams the block
+   merge into one partition-indexed file: each FileRun equal to a numpy
+   golden (stable order by partition and key), the spill counters equal
+   to the files written and read, only the final file left, no failover;
+   a zlib leg flushes the same records as its uncompressed twin from
+   smaller files.
 
-Kernel launch counts are zeroed before each path of phases 3-6 and read
-after it: each TPU kernel's counterpart on the path must have been
+Kernel launch counts are zeroed before each path of phases 3-6 and 8 and
+read after it: each TPU kernel's counterpart on the path must have been
 launched, and the general-query merge rank, which the main path no longer
-calls, not at all; the JSON line reports their sum over phases 3-6.  The
+calls, not at all; the JSON line reports their sum over phases 3-6 and 8.  The
 last two lines are one JSON object of per-kernel numbers and {"ok": true,
 "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -62,8 +74,10 @@ import collections
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,6 +86,11 @@ FNV_OFFSET, FNV_PRIME = 2166136261, 16777619
 NUM_PARTITIONS = 4
 BENCH_VOCAB = 50_000
 WORD_VOCAB = 100_000
+#: phase 8's scale: spill_bench's 2,000,000-word vocabulary and
+#: io.sort.mb=64, about 0.5 GB of map output a producer (SPILL_r05.json)
+SPILL_VOCAB = 2_000_000
+SPILL_SPAN_MB = 64
+SPILL_PRODUCER_MB = 512
 ZIPF_A = 1.3
 #: the value of every word in the combiner leg: the long 1 (VarLongSerde)
 ONE_LONG = np.frombuffer((1 + (1 << 63)).to_bytes(8, "big"), np.uint8)
@@ -427,8 +446,10 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
 
     # merge-path pair: the map side's resident pair (2^21 a side, W = 3),
     # one rung of the reduce ladder (2^24 a side, W = 4), the ladder's odd
-    # carry (na = 2 nb) and a row wider than the templated flavours
-    # (W = 9).  idx is the int32 row index of the concatenation.
+    # carry (na = 2 nb), a pair of phase 8's streamed-merge rounds (2^17 a
+    # side, the partition lane and four key lanes) and a row wider than
+    # the templated flavours (W = 9).  idx is the int32 row index of the
+    # concatenation.
     def merge_path_case(na, nb, width, label, main_row):
         a, a_len, a_key = sorted_run(rng, na, width)
         b, b_len, b_key = sorted_run(rng, nb, width)
@@ -478,6 +499,7 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
     merge_path_case(1 << 21, 1 << 21, 3, "map pair", False)
     merge_path_case(1 << 24, 1 << 24, 4, "reduce rung", True)
     merge_path_case(1 << 21, 1 << 20, 4, "odd carry", False)
+    merge_path_case(1 << 17, 1 << 17, 5, "spill round", False)
     merge_path_case(1 << 20, 1 << 20, 9, "generic W", False)
     torch.cuda.synchronize()
     return rows
@@ -1045,6 +1067,286 @@ def containment_phase(args, device="cuda", hang_ms: int = 60_000,
     return dict(phase_launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the spilling map side and the streamed final merge
+# ---------------------------------------------------------------------------
+def bulk_word_vocab(rng, size: int) -> tuple:
+    """`size` distinct lowercase words of 1-16 bytes, drawn in bulk and
+    deduplicated in draw order: (uint8[size, 16] zero padded, lengths)."""
+    mat = np.zeros((0, 16), dtype=np.uint8)
+    while len(mat) < size:
+        m = size - len(mat) + size // 50 + 16
+        lens = rng.integers(1, 17, m)
+        draw = rng.integers(97, 123, (m, 16), dtype=np.uint8)
+        draw[np.arange(16)[None, :] >= lens[:, None]] = 0
+        mat = np.concatenate([mat, draw])
+        _, first = np.unique(mat.view(np.dtype((np.void, 16))).ravel(),
+                             return_index=True)
+        mat = mat[np.sort(first)]
+    mat = np.ascontiguousarray(mat[:size])
+    return mat, (mat != 0).sum(axis=1).astype(np.int64)
+
+
+def indexed_word_batches(rng, mat, lens, span_bytes: int, kv_bytes: int = 0,
+                         spans: int = 0):
+    """Span-filling batches of Zipf(1.3) words whose values are each
+    record's index in the stream as a big-endian long, until the stream
+    holds kv_bytes of keys and values and at least `spans` batches.
+    Returns (batches, ids)."""
+    batches, ids, start, kv = [], [], 0, 0
+    while kv < kv_bytes or len(batches) < spans:
+        batch, bids = word_batch(rng, mat, lens, span_bytes)
+        n = batch.num_records
+        batch.val_bytes = np.arange(start, start + n, dtype=">u8")\
+            .view(np.uint8)
+        batches.append(batch)
+        ids.append(bids)
+        start += n
+        kv += int(batch.key_offsets[-1]) + 8 * n
+    return batches, np.concatenate(ids)
+
+
+class SpillProbe:
+    """Phase 8's witnesses, installed around the sorter module's spill
+    write and merge calls: the path and size of every span file written,
+    each block-merge round's records and engine (a round is on the card
+    when the device.merge histogram moved during it), and the seconds of
+    the streamed final merge."""
+
+    def __init__(self):
+        self.files, self.rounds = [], collections.Counter()
+        self.merge_s = 0.0
+
+    def __enter__(self):
+        from tez_tpu_torch.common import metrics
+        from tez_tpu_torch.ops import sorter
+        save, merge = sorter.save_run_partitioned, sorter.merge_sorted_runs
+        final = sorter.DeviceSorter._stream_final_merge
+        self._saved = save, merge, final
+        hist = metrics.registry().histogram
+
+        def streaming(sorter_self, runs):
+            t0 = time.perf_counter()
+            try:
+                return final(sorter_self, runs)
+            finally:
+                self.merge_s += time.perf_counter() - t0
+
+        def saving(run, path, **kw):
+            out = save(run, path, **kw)
+            self.files.append((path, os.path.getsize(path)))
+            return out
+
+        def merging(runs, *a, **kw):
+            c0 = hist("device.merge").count
+            out = merge(runs, *a, **kw)
+            where = "device" if hist("device.merge").count > c0 else "host"
+            self.rounds[where] += 1
+            self.rounds[where + "_records"] += out.batch.num_records
+            return out
+
+        sorter.save_run_partitioned, sorter.merge_sorted_runs = \
+            saving, merging
+        sorter.DeviceSorter._stream_final_merge = streaming
+        return self
+
+    def __exit__(self, *_):
+        from tez_tpu_torch.ops import sorter
+        (sorter.save_run_partitioned, sorter.merge_sorted_runs,
+         sorter.DeviceSorter._stream_final_merge) = self._saved
+        return False
+
+
+def spill_producer(batches, span_bytes: int, device, root: str, codec=None,
+                   mem_budget=None, label="spill") -> tuple:
+    """One producer through DeviceSorter(pipeline_depth=2) with a fresh
+    spill directory under `root`, flushed with flush_run.  Returns
+    (FileRun, counters, spill directory, probe, seconds)."""
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.ops.runformat import FileRun
+    from tez_tpu_torch.ops.sorter import DeviceSorter
+    spill_dir = tempfile.mkdtemp(dir=root)
+    counters = TezCounters()
+    s = DeviceSorter(num_partitions=NUM_PARTITIONS, key_width=16,
+                     span_budget_bytes=span_bytes, spill_dir=spill_dir,
+                     counters=counters, mem_budget_bytes=mem_budget,
+                     engine="device", spill_codec=codec, pipeline_depth=2,
+                     device=device)
+    pipe = s._ensure_pipeline()
+    with SpillProbe() as probe:
+        t0 = time.perf_counter()
+        for batch in batches:
+            s.write_batch(batch)
+        fr = s.flush_run()
+        sync(device)
+        wall = time.perf_counter() - t0
+    check(isinstance(fr, FileRun),
+          f"{label}: flush_run returned {type(fr).__name__}, not a FileRun")
+    check(s.num_spills == len(batches),
+          f"{label}: {s.num_spills} span sorts for {len(batches)} spans")
+    check_fault_free(label, [pipe], [counters])
+    return fr, counters, spill_dir, probe, wall
+
+
+def check_spill_counters(label, fr, counters, spill_dir, probe,
+                         records: int) -> dict:
+    """The spill counters against the files: SPILLED_RECORDS = the
+    records, one ADDITIONAL_SPILL_COUNT per span file, bytes read = the
+    span files, bytes written = the span files + the final file's blocks
+    (tez_tpu counts the final file less its magic and its partition
+    index), and only the final file left."""
+    from tez_tpu_torch.common.counters import TaskCounter
+    from tez_tpu_torch.ops.runformat import PR_FOOTER_MAGIC, PR_MAGIC
+
+    def value(c):
+        return counters.find_counter(c).value
+    span_bytes = sum(size for _p, size in probe.files)
+    p = fr.num_partitions
+    index_bytes = 4 + 8 * (p + 1) + 16 * p + 12 + len(PR_FOOTER_MAGIC)
+    final_bytes = os.path.getsize(fr.path) - len(PR_MAGIC) - index_bytes
+    got = {c.name: value(c) for c in (
+        TaskCounter.SPILLED_RECORDS, TaskCounter.ADDITIONAL_SPILL_COUNT,
+        TaskCounter.ADDITIONAL_SPILLS_BYTES_READ,
+        TaskCounter.ADDITIONAL_SPILLS_BYTES_WRITTEN,
+        TaskCounter.HOST_SPILL_BYTES)}
+    want = {"SPILLED_RECORDS": records,
+            "ADDITIONAL_SPILL_COUNT": len(probe.files),
+            "ADDITIONAL_SPILLS_BYTES_READ": span_bytes,
+            "ADDITIONAL_SPILLS_BYTES_WRITTEN": span_bytes + final_bytes,
+            "HOST_SPILL_BYTES": span_bytes}
+    check(got == want, f"{label}: counters {got} != {want}")
+    check(len(probe.files) >= 1, f"{label}: no span spilled")
+    left = os.listdir(spill_dir)
+    check(left == [os.path.basename(fr.path)],
+          f"{label}: spill directory holds {left}")
+    return got
+
+
+def file_run_partitions(fr) -> list:
+    """Each partition of a FileRun as (key bytes, key offsets, value
+    bytes)."""
+    out = []
+    for p in range(fr.num_partitions):
+        b = fr.partition(p)
+        out.append((b.key_bytes, b.key_offsets, b.val_bytes))
+    return out
+
+
+def spill_phase(args, device="cuda", producers: int = 4,
+                producer_mb: float = SPILL_PRODUCER_MB,
+                span_mb: float = SPILL_SPAN_MB,
+                vocab_size: int = SPILL_VOCAB,
+                zlib_span_mb: float = 16) -> dict:
+    """Phase 8; returns the kernel launches of its spilling path."""
+    import torch
+    from tez_tpu_torch.common import metrics
+    span_bytes = int(span_mb * (1 << 20))
+    rng = np.random.default_rng(args.seed + 8)
+    t0 = time.perf_counter()
+    mat, lens = bulk_word_vocab(rng, vocab_size)
+    part, rank = vocab_rank(mat, lens)
+    log(f"spill: vocabulary of {vocab_size} words in "
+        f"{time.perf_counter() - t0:.3f} s")
+    # every spill directory lives under one temporary root, removed
+    # whatever happens
+    with tempfile.TemporaryDirectory(prefix="tez_spill_") as root:
+        totals: collections.Counter = collections.Counter()
+        hist = metrics.registry().histogram
+        if is_cuda(device):
+            torch.cuda.reset_peak_memory_stats()
+        for i in range(producers):
+            batches, ids = indexed_word_batches(
+                rng, mat, lens, span_bytes, int(producer_mb * (1 << 20)))
+            n, spans = len(ids), len(batches)
+            kv = int(lens[ids].sum()) + 8 * n
+            h0 = {h: (hist(h).count, hist(h).sum_ms)
+                  for h in ("spill.write", "device.merge")}
+            label = f"spill producer {i}"
+            with Launches(label, totals) as ln:
+                fr, counters, spill_dir, probe, wall = \
+                    spill_producer(batches, span_bytes, device, root,
+                               label=label)
+            ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+            del batches
+            got = check_spill_counters(label, fr, counters, spill_dir,
+                                       probe, n)
+            dh = {h: (hist(h).count - c, hist(h).sum_ms - m)
+                  for h, (c, m) in h0.items()}
+            log(f"phase {label}: wall_s={wall:.3f} "
+                f"merge_s={probe.merge_s:.3f} spans={spans} records={n} "
+                f"MB={kv / 1e6:.1f} MB_per_s={kv / 1e6 / wall:.1f}")
+            log(f"{label}: disk bytes written "
+                f"{got['ADDITIONAL_SPILLS_BYTES_WRITTEN']} read "
+                f"{got['ADDITIONAL_SPILLS_BYTES_READ']} span files "
+                f"{got['ADDITIONAL_SPILL_COUNT']} final file "
+                f"{os.path.getsize(fr.path)}; histogram spill.write count="
+                f"{dh['spill.write'][0]} sum_ms={dh['spill.write'][1]:.3f}; "
+                f"device.merge count={dh['device.merge'][0]} sum_ms="
+                f"{dh['device.merge'][1]:.3f} of merge_ms="
+                f"{probe.merge_s * 1e3:.3f}; "
+                f"merge rounds on the card {probe.rounds['device']} "
+                f"({probe.rounds['device_records']} records), on the host "
+                f"{probe.rounds['host']} ({probe.rounds['host_records']} "
+                f"records); merge_path_pair launches "
+                f"{ln.counts['merge_path_pair']}")
+            # golden: a stable order by (partition, key) over vocabulary ranks
+            t0 = time.perf_counter()
+            order = np.argsort(rank[ids].astype(np.int32), kind="stable")
+            counts = np.bincount(part[ids], minlength=NUM_PARTITIONS)
+            at = 0
+            for p, (kb, ko, vb) in enumerate(file_run_partitions(fr)):
+                sel = order[at:at + counts[p]]
+                at += counts[p]
+                check(fr.partition_row_count(p) == counts[p],
+                      f"{label}: partition {p} holds "
+                      f"{fr.partition_row_count(p)} rows, golden {counts[p]}")
+                check(np.array_equal(vb.view(">u8"), sel),
+                      f"{label}: partition {p} record order differs from "
+                      f"the golden")
+                klen = lens[ids[sel]]
+                check(np.array_equal(np.diff(ko), klen),
+                      f"{label}: partition {p} key lengths")
+                check(np.array_equal(kb, mat[ids[sel]][
+                    np.arange(16)[None, :] < klen[:, None]]),
+                      f"{label}: partition {p} key bytes")
+            log(f"{label}: {n} records equal to the golden "
+                f"(golden_s={time.perf_counter() - t0:.3f})")
+            fr.delete()
+            shutil.rmtree(spill_dir)
+            del ids, order
+        if is_cuda(device):
+            log(f"spill: peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+        # zlib leg: the same records through a compressing twin
+        zspan = int(zlib_span_mb * (1 << 20))
+        batches, ids = indexed_word_batches(rng, mat, lens, zspan, spans=6)
+        legs = {}
+        for codec in (None, "zlib"):
+            with Launches(f"spill {codec}", totals):
+                fr, counters, spill_dir, probe, wall = spill_producer(
+                    batches, zspan, device, root, codec=codec,
+                    mem_budget=2 * zspan, label=f"spill {codec}")
+            got = check_spill_counters(f"spill {codec}", fr, counters,
+                                       spill_dir, probe, len(ids))
+            legs[codec] = (file_run_partitions(fr),
+                           got["ADDITIONAL_SPILLS_BYTES_WRITTEN"])
+            log(f"spill {codec}: 6 spans of {zlib_span_mb} MB, wall_s="
+                f"{wall:.3f}, disk bytes written "
+                f"{got['ADDITIONAL_SPILLS_BYTES_WRITTEN']}")
+            fr.delete()
+            shutil.rmtree(spill_dir)
+        for p, (a, b) in enumerate(zip(legs[None][0], legs["zlib"][0])):
+            check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+                  f"spill zlib: partition {p} differs from the uncompressed")
+        check(legs["zlib"][1] < legs[None][1],
+              f"spill zlib: {legs['zlib'][1]} bytes written, not below "
+              f"{legs[None][1]}")
+    log(f"spill: {producers} producers equal to their goldens; zlib leg "
+        f"equal to its twin in {legs['zlib'][1]} of {legs[None][1]} bytes")
+    return dict(totals)
+
+
 class SettableClock:
     """A clock that stands still until advanced: the breaker's cooldown
     in phase 7 elapses when the script says so, not by wall time."""
@@ -1120,17 +1422,24 @@ def main(argv=None) -> int:
     fault_launches = containment_phase(args)
     log(f"containment: {time.perf_counter() - t0:.3f} s, launches "
         f"{json.dumps(fault_launches)}")
+    t0 = time.perf_counter()
+    spill_launches = spill_phase(args)
+    log(f"spill: {time.perf_counter() - t0:.3f} s, launches "
+        f"{json.dumps(spill_launches)}")
+    launches = collections.Counter(launches)
+    launches.update(spill_launches)
     for kname, row in rows.items():
         row["launches"] = launches[kname]
     for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:
         for kname in names:
             log(f"launch check: {tpu_kernel} ({where}) -> {kname}: "
-                f"{launches[kname]} launches on the slice")
+                f"{launches[kname]} launches on the slice and the spill "
+                f"path")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
         f"counterpart, held in phase 2): {launches['merge_rank']} launches "
-        f"on the slice")
+        f"on the slice and the spill path")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

@@ -654,8 +654,10 @@ def test_kernel_fault_in_the_oom_split_retry_poisons():
 
 def test_sorter_kernel_fault_fails_the_flush(monkeypatch):
     """DeviceSorter(pipeline_depth=2): a KernelError raised from the resident
-    dispatch fails the flush, with no host failover and no breaker
-    failure."""
+    dispatch poisons the pipeline, with no host failover and no breaker
+    failure.  Where it surfaces depends on timing: from the flush itself,
+    or from a later write_batch, whose submit raises "pipeline failed"
+    from the KernelError.  Either way the KernelError is in the chain."""
     from tez_tpu_torch.ops import device as dev_ops
     from tez_tpu_torch.ops.kernels import KernelError
 
@@ -664,8 +666,16 @@ def test_sorter_kernel_fault_fails_the_flush(monkeypatch):
 
     monkeypatch.setattr(dev_ops, "dispatch_resident_span", broken)
     br = CircuitBreaker(failures=100)
-    with pytest.raises(KernelError):
-        _flush_merged(2, "", breaker=br)
+    counters = TezCounters()
+    with pytest.raises(Exception) as info:
+        _flush_merged(2, "", breaker=br, counters=counters)
+    chain, exc = [], info.value
+    while exc is not None:
+        chain.append(exc)
+        exc = exc.__cause__
+    assert any(isinstance(e, KernelError) for e in chain), chain
+    fo = counters.group(COUNTER_GROUP)
+    assert fo.find_counter("device.failover.spans").value == 0
     assert br.trips == 0 and br.state == "closed"
 
 

@@ -509,6 +509,41 @@ def test_async_sorter_matches_sync_on_the_card(cuda):
           merge_sorted_runs(sync, 4, 12, device="cuda"))
 
 
+@pytest.mark.parametrize("device_min_records", [0, None])
+def test_async_spilling_sorter_matches_host(cuda, tmp_path,
+                                            device_min_records):
+    """DeviceSorter(pipeline_depth=2) with a spill directory on the card:
+    8 spans of 8 MB, 2 kept in RAM, 6 spilled; flush_run's FileRun is the
+    same file, byte for byte, as the same sorter's on device="cpu", and
+    the streamed merge's rounds ran the merge-path kernel (every round
+    with device_min_records=0; the big ones with the default floor)."""
+    from tez_tpu_torch.ops.async_stage import reset_process_breaker
+    from tez_tpu_torch.ops.runformat import FileRun
+    reset_process_breaker()
+    batches = _bench_batches(5, 8, (8 << 20) // 36)
+    files, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        spill_dir = tmp_path / dev
+        kw = {} if device_min_records is None else \
+            {"device_min_records": device_min_records}
+        s = DeviceSorter(num_partitions=4, key_width=12,
+                         span_budget_bytes=batches[0].nbytes,
+                         spill_dir=str(spill_dir), engine="device",
+                         pipeline_depth=2, device=dev, **kw)
+        kernels.reset_launches()
+        for b in batches:
+            s.write_batch(b)
+        fr = s.flush_run()
+        launches[dev] = dict(kernels.launches)
+        assert isinstance(fr, FileRun) and not _failovers(s.counters)
+        assert os.listdir(spill_dir) == [os.path.basename(fr.path)]
+        files[dev] = open(fr.path, "rb").read()
+    assert files["cuda"] == files["cpu"]
+    assert launches["cuda"]["merge_path_pair"] > 0
+    assert launches["cuda"]["fnv_hash_lanes"] == 8
+    assert launches["cuda"]["merge_rank"] == 0
+
+
 def test_async_dispatch_never_waits_on_the_card(cuda):
     """The dispatch stage enqueues and returns: with the compute stream
     held busy ~0.3 s (torch.cuda._sleep) just before each span's

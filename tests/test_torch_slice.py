@@ -113,10 +113,10 @@ def test_import_guard_no_jax_no_tez_tpu():
                                           tracing)
         from tez_tpu_torch.library import partitioners
         from tez_tpu_torch.obs import flight
-        from tez_tpu_torch.ops import (_build, async_stage, device,
-                                       device_pipeline, host_sort, kernels,
-                                       keycodec, native, runformat, serde,
-                                       sorter)
+        from tez_tpu_torch.ops import (_build, async_stage, block_merge,
+                                       device, device_pipeline, host_sort,
+                                       kernels, keycodec, native, runformat,
+                                       serde, sorter)
         bad = [m for m in sys.modules
                if m == "tez_tpu" or m.startswith("tez_tpu.")
                or m == "jax" or m.startswith("jax.")]

@@ -156,17 +156,35 @@ def test_sum_long_combiner_matches():
                                   vals)
 
 
-def test_deferred_features_raise():
+def test_deferred_features_raise(tmp_path):
     # the async span plane is ported: pipeline_depth > 0 builds a sorter
     assert tsorter.DeviceSorter(2, pipeline_depth=2,
                                 device="cpu").pipeline_depth == 2
-    with pytest.raises(NotImplementedError):
-        tsorter.DeviceSorter(2, spill_dir="/nonexistent", device="cpu")
+    # host spill is ported: a spill directory builds a sorter
+    s = tsorter.DeviceSorter(2, spill_dir=str(tmp_path), device="cpu")
+    assert s.spill_dir == str(tmp_path) and s.mem_budget == 2 * s.span_budget
     with pytest.raises(NotImplementedError):
         tsorter.DeviceSorter(2, key_normalizer=lambda k: k, device="cpu")
     with pytest.raises(NotImplementedError):
         tsorter.merge_sorted_runs([], 2, 8, key_normalizer=lambda k: k,
                                   device="cpu")
+
+
+def test_sorter_signature_matches_tez_tpu():
+    """The constructor's parameters are tez_tpu's, in tez_tpu's order, then
+    the port's device: a positional call means the same on both."""
+    import inspect
+    jparams = list(inspect.signature(
+        jsorter.DeviceSorter.__init__).parameters.values())
+    tparams = list(inspect.signature(
+        tsorter.DeviceSorter.__init__).parameters.values())
+    assert [p.name for p in tparams] == [p.name for p in jparams] + ["device"]
+    for t, j in zip(tparams, jparams):
+        assert t.kind == j.kind
+        assert t.default == j.default, t.name
+    s = tsorter.DeviceSorter(4, 16, 1 << 20, None, None, None, "hash",
+                             4 << 20, device="cpu")
+    assert s.mem_budget == 4 << 20 and s.engine == "device"
 
 
 def test_sorter_defaults_to_the_card():

@@ -64,6 +64,12 @@ KNOWN_POINTS: Dict[str, str] = {
         "ops/async_stage.py D2H readback entry (detail = span=<id>); fail "
         "mode crashes the readback worker's attempt so the span re-sorts "
         "through the host engine",
+    "spill.write":
+        "ops/runformat.py + ops/sorter.py spill writes (Run.save, "
+        "save_run_partitioned, DeviceSorter._store_run)",
+    "spill.read":
+        "ops/runformat.py spill reads (Run.load, FileRun block reads); "
+        "corrupt mode flips stored bytes so the CRC path must catch it",
 }
 
 _EXC_KINDS = {

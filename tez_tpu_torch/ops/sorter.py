@@ -16,13 +16,22 @@ breaker) around every device attempt.  Runs complete out of order and are
 put back in spill order at flush, so the result is bit-exact with the
 synchronous engine.
 
-Not ported yet (a caller that asks for them gets NotImplementedError):
-host spill (spill_dir) and custom key normalizers.
+With ``spill_dir`` set (the library always sets one), a run that would
+take the runs kept in RAM past ``mem_budget_bytes`` (default twice the
+span budget) is written to a partition-indexed file instead and drops its
+device key columns; flush_run then streams a partition-major block merge
+(ops/block_merge.py) of the spilled and the in-RAM runs into one
+partition-indexed file and returns it as a FileRun.
+
+Not ported yet (a caller that asks for it gets NotImplementedError):
+custom key normalizers.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
+import uuid
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,8 +41,10 @@ from tez_tpu_torch.common.counters import TaskCounter, TezCounters
 from tez_tpu_torch.ops import device as device_ops
 from tez_tpu_torch.ops import kernels
 from tez_tpu_torch.ops.keycodec import matrix_to_lanes, pad_to_matrix
-from tez_tpu_torch.ops.runformat import (KVBatch, Run, adjacent_equal_rows,
-                                         gather_ragged)
+from tez_tpu_torch.ops.runformat import (FileRun, KVBatch,
+                                         PartitionedRunWriter, Run,
+                                         adjacent_equal_rows, gather_ragged,
+                                         save_run_partitioned)
 from tez_tpu_torch.ops.serde import decode_longs_be, encode_longs_be
 
 
@@ -190,10 +201,12 @@ class DeviceSorter:
                  counters: Optional[TezCounters] = None,
                  combiner: Optional[Combiner] = None,
                  partitioner: str = "hash",
+                 mem_budget_bytes: Optional[int] = None,
                  engine: str = "device",
                  sort_threads: int = 0,
                  merge_factor: int = 64,
                  key_normalizer: Optional[Callable[[bytes], bytes]] = None,
+                 spill_codec: Optional[str] = None,
                  resident_keys: bool = True,
                  device_min_records: int = DEVICE_SORT_MIN_RECORDS,
                  engine_min_bytes: int = ENGINE_MIN_KEY_BYTES,
@@ -206,8 +219,6 @@ class DeviceSorter:
                  split_min_bytes: int = DEVICE_SPLIT_MIN_BYTES,
                  breaker=None,
                  device="cuda"):
-        if spill_dir is not None:
-            raise _not_ported("host spill (spill_dir)")
         if key_normalizer is not None:
             raise _not_ported("custom key normalization (key_normalizer)")
         self.device = device_ops.resolve_device(device)
@@ -244,12 +255,18 @@ class DeviceSorter:
         self._breaker = breaker
         #: keep sorted key lanes on the device for downstream merges
         self.resident_keys = resident_keys
+        #: host-spill compression (reference: tez.runtime.compress on IFile)
+        self.spill_codec = spill_codec
         self.span_budget = span_budget_bytes
+        self.spill_dir = spill_dir
         self.counters = counters or TezCounters()
         self._out_records_ctr = self.counters.find_counter(
             TaskCounter.OUTPUT_RECORDS)
         self.combiner = combiner
         self.partitioner = partitioner
+        #: host RAM for runs kept until the flush; runs past it spill to
+        #: spill_dir (without one, every run stays in RAM)
+        self.mem_budget = mem_budget_bytes or (span_budget_bytes * 2)
         #: bounded k-way merge width (reference: io.sort.factor)
         self.merge_factor = merge_factor
         #: background span sorting (the "sortmaster": collection continues
@@ -264,7 +281,8 @@ class DeviceSorter:
         self._pending = []
         self._store_lock = threading.Lock()
         self._span = SpanBuffer()
-        self._runs: List[Run] = []
+        self._runs: List[Run | str] = []   # Run (in RAM) or path (spilled)
+        self._runs_nbytes = 0
         self._closed = False
         self.num_spills = 0
         #: pipelined shuffle: each span's run ships through this hook as
@@ -726,7 +744,23 @@ class DeviceSorter:
     def _store_run(self, run: Run) -> None:
         self.counters.increment(TaskCounter.SPILLED_RECORDS,
                                 run.batch.num_records)
-        self._runs.append(run)
+        if self.spill_dir is not None and \
+                self._runs_nbytes + run.nbytes > self.mem_budget:
+            path = os.path.join(self.spill_dir,
+                                f"spill_{uuid.uuid4().hex}.prun")
+            save_run_partitioned(run, path, codec=self.spill_codec)
+            # a spilled run's key columns would only hold device memory
+            run.batch.dev_keys = None
+            # bytes actually written: with a codec, the disk I/O
+            written = os.path.getsize(path)
+            self.counters.increment(
+                TaskCounter.ADDITIONAL_SPILLS_BYTES_WRITTEN, written)
+            self.counters.increment(TaskCounter.ADDITIONAL_SPILL_COUNT)
+            self.counters.increment(TaskCounter.HOST_SPILL_BYTES, written)
+            self._runs.append(path)
+        else:
+            self._runs.append(run)
+            self._runs_nbytes += run.nbytes
 
     def _drain_pending(self) -> None:
         """Join the sortmaster (its workers stored or shipped their runs
@@ -750,15 +784,29 @@ class DeviceSorter:
 
     # -- flush ---------------------------------------------------------------
     def flush(self) -> Optional[Run]:
-        """Final merge of all spans into one partition-sorted Run; None in
-        pipelined mode (on_spill set).  The same as flush_run until host
-        spill is ported."""
-        return self.flush_run()
+        """Final merge of all spans into one partition-sorted Run in RAM;
+        None in pipelined mode (on_spill set).  A spilled flush's FileRun
+        is read back and its file deleted; spill-scale callers want
+        flush_run, which leaves the result on disk."""
+        result = self.flush_run()
+        if isinstance(result, FileRun):
+            run = result.to_run()
+            result.delete()
+            return run
+        return result
 
-    def flush_run(self) -> Optional[Run]:
+    def flush_run(self):
         """Final merge of all spans.  Returns None in pipelined mode (spans
         already shipped through on_spill; a trailing partial span ships
-        here)."""
+        here).
+
+        With every run in RAM the result is a `Run` (the single span as it
+        is, or the merge).  Once any span spilled, the merge streams: a
+        partition-major block k-way merge (ops/block_merge.py) over the
+        span files and the in-RAM runs, written as it goes to one
+        partition-indexed file, returned as a `FileRun` (reference: the
+        final IFile + TezSpillRecord of PipelinedSorter.java:559 ->
+        TezMerger.java:76)."""
         if self._closed:
             raise RuntimeError("DeviceSorter already flushed")
         self._closed = True
@@ -786,6 +834,8 @@ class DeviceSorter:
         if not runs:
             return Run(KVBatch.empty(),
                        np.zeros(self.num_partitions + 1, dtype=np.int64))
+        if any(isinstance(r, str) for r in runs):
+            return self._stream_final_merge(runs)
         if len(runs) == 1:
             return runs[0]
         merged = merge_sorted_runs(
@@ -796,6 +846,62 @@ class DeviceSorter:
         if self.combiner is not None:
             merged = self.combiner(merged)
         return merged
+
+    def _stream_final_merge(self, runs: List["Run | str"]) -> FileRun:
+        """Block merge of the spilled and in-RAM runs, partition by
+        partition, into one partition-indexed file."""
+        from tez_tpu_torch.ops.block_merge import iter_merged_blocks
+        sources: List["Run | FileRun"] = []
+        for r in runs:
+            if isinstance(r, str):
+                self.counters.increment(
+                    TaskCounter.ADDITIONAL_SPILLS_BYTES_READ,
+                    os.path.getsize(r))
+                sources.append(FileRun(r))
+            else:
+                sources.append(r)
+        path = os.path.join(self.spill_dir,
+                            f"final_{uuid.uuid4().hex}.prun")
+        writer = PartitionedRunWriter(path, self.num_partitions,
+                                      codec=self.spill_codec)
+        self.counters.increment(TaskCounter.MERGED_MAP_OUTPUTS, len(sources))
+        try:
+            for p in range(self.num_partitions):
+                srcs = []
+                for s in sources:
+                    if s.partition_row_count(p) == 0:
+                        continue
+                    srcs.append(s.iter_partition_blocks(p)
+                                if isinstance(s, FileRun)
+                                else iter([s.partition(p)]))
+                for block in iter_merged_blocks(
+                        srcs, self.key_width, engine=self.engine,
+                        merge_factor=self.merge_factor,
+                        device_min_records=self.device_min_records,
+                        device=self.device):
+                    if self.combiner is not None:
+                        # block-local combine, legal for an associative
+                        # combiner: a key split across block edges keeps at
+                        # most one extra record per edge, which the
+                        # consumer's grouped reader unifies
+                        block = self.combiner(Run(
+                            block, np.array([0, block.num_records],
+                                            dtype=np.int64))).batch
+                    writer.append(block, p)
+            writer.close()
+        except BaseException:
+            writer.abort()
+            raise
+        self.counters.increment(TaskCounter.ADDITIONAL_SPILLS_BYTES_WRITTEN,
+                                writer.bytes_written)
+        # the span files are dead now
+        for r in runs:
+            if isinstance(r, str):
+                try:
+                    os.remove(r)
+                except OSError:
+                    pass
+        return FileRun(path)
 
 
 def _merge_resident_partitioned(live: Sequence[Run], num_partitions: int

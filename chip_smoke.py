@@ -56,12 +56,31 @@ Phases, each checked, none allowed to fail:
    golden (stable order by partition and key), the spill counters equal
    to the files written and read, only the final file left, no failover;
    a zlib leg flushes the same records as its uncompressed twin from
-   smaller files.
+   smaller files;
+9. the reduce side's bounded-memory merge, ShuffleMergeManager with
+   tez_tpu's defaults for an ordered input (a 230.4 MiB budget, merge
+   threshold 0.9, single-batch limit 0.25, merge factor 64, the device
+   engine from 65,536 records, async depth 2), over sorted map segments
+   of 1-16 byte Zipf(1.3) words of phase 8's vocabulary whose values name
+   their source and index: A, one reducer's 672 MiB committed by 8 fetch
+   threads (64 segments of 8 MiB, 2 skewed segments of 64 MiB that take
+   the DISK target, 4 disk-direct sources), its streamed final merge in
+   key order with each source's records in their order; B, one paced
+   fetch thread over 32 segments and one skewed one, byte-identical at
+   async depth 2 and 0; C, merge factor 4 and a 16 MiB budget over 48
+   segments of 1 MiB, disk-to-disk cascades on the async lane,
+   byte-identical at depth 0; D, two spilling sorters and one manager
+   under CaseInsensitiveKeyComparator and ReverseByteKeyComparator (the
+   partition of every record the FNV of its raw bytes, the merged
+   records in normalized order); E, B's input under the merge lane's
+   faults (an out-of-memory split, a hang against a 500 ms watchdog, a
+   tripped breaker), each byte-identical to B.
 
-Kernel launch counts are zeroed before each path of phases 3-6 and 8 and
-read after it: each TPU kernel's counterpart on the path must have been
-launched, and the general-query merge rank, which the main path no longer
-calls, not at all; the JSON line reports their sum over phases 3-6 and 8.  The
+Kernel launch counts are zeroed before each path of phases 3-6, 8 and 9
+and read after it: each TPU kernel's counterpart on the path must have
+been launched, and the general-query merge rank, which the main path no
+longer calls, not at all; the JSON line reports their sum over phases
+3-6, 8 and 9.  The
 last two lines are one JSON object of per-kernel numbers and {"ok": true,
 "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -1347,6 +1366,709 @@ def spill_phase(args, device="cuda", producers: int = 4,
     return dict(totals)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the reduce side's bounded-memory merge (ShuffleMergeManager)
+# ---------------------------------------------------------------------------
+#: tez_tpu's defaults for an ordered input (tez_tpu/library/inputs.py,
+#: common/config.py): key width 16, engine auto (the device), the device
+#: floor of 65,536 records, io.sort.factor 64, shuffle.merge.percent 0.9,
+#: memory.limit.percent 0.25 and merge.async.depth 2; the budget is
+#: fetch.buffer.percent 0.9 of io.sort.mb 256, and 8 fetch threads
+#: commit (shuffle.parallel.copies)
+MERGE_KNOBS = dict(key_width=16, engine="auto", merge_factor=64,
+                   merge_threshold=0.9, max_single_fraction=0.25,
+                   async_depth=2)
+MERGE_FETCHERS = 8
+#: phase 9's sizes.  Leg A is one reducer's input: 64 map segments of 8
+#: MiB of keys and values, 2 skewed segments of 64 MiB (over the 0.25 x
+#: budget single-batch limit, so they take the DISK target) and 4
+#: disk-direct sources of 8 MiB, 672 MiB in all.  Leg B: 32 segments and
+#: one skewed segment, committed in slot order (24 segments would cross
+#: the merge threshold once: 13 segments of ~16.2 MiB with their offsets
+#: pass 0.9 x 230.4 MiB, the other 11 do not).  Leg C: 48 segments of 1
+#: MiB against a 16 MiB budget at merge factor 4.  Leg D: two sorters of
+#: 4 spans of 16 MB each, a 16 MiB merge budget.
+MERGE_SIZES = dict(vocab_size=SPILL_VOCAB, budget=int(256 * (1 << 20) * 0.9),
+                   device_min_records=1 << 16, seg_mb=8, segments_a=64,
+                   skew_mb=64, skews_a=2, locals_a=4, segments_b=32,
+                   c_seg_mb=1, c_segments=48, c_budget_mb=16, d_vocab=100_000,
+                   d_span_mb=16, d_spans=4, d_budget_mb=16, hang_ms=10_000)
+#: the same legs at a size the plain versions run in seconds: every size
+#: and the budgets cut 640 times, so each leg crosses its thresholds as
+#: at full size, and a lower device floor keeps the merges on the device
+#: engine
+TINY_MERGE = dict(vocab_size=5000, budget=int(256 * (1 << 20) * 0.9) // 640,
+                  device_min_records=512, seg_mb=8 / 640, segments_a=64,
+                  skew_mb=64 / 640, skews_a=2, locals_a=4, segments_b=32,
+                  c_seg_mb=1 / 640, c_segments=48, c_budget_mb=16 / 640,
+                  d_vocab=2000, d_span_mb=1 / 32, d_spans=4,
+                  d_budget_mb=1 / 48, hang_ms=2000)
+MERGE_HISTOGRAMS = ("device.encode", "device.h2d", "device.d2h",
+                    "device.merge", "device.failover.host_sort")
+
+
+def key_rank(mat: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Rank of every vocabulary word in raw byte order (big-endian lanes,
+    then length)."""
+    lanes = be_lanes(mat)
+    order = np.lexsort((lens,) + tuple(lanes[:, i] for i in
+                                       range(lanes.shape[1] - 1, -1, -1)))
+    rank = np.empty(len(mat), dtype=np.int64)
+    rank[order] = np.arange(len(mat))
+    return rank
+
+
+def ragged_keys(mat: np.ndarray, lens: np.ndarray):
+    """(key bytes, key offsets) of rows of a zero-padded key matrix."""
+    ko = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=ko[1:])
+    return mat[np.arange(mat.shape[1])[None, :] < lens[:, None]], ko
+
+
+def key_matrix(kb: np.ndarray, ko: np.ndarray) -> tuple:
+    """Zero-padded uint8[n, 16] matrix and lengths of ragged keys."""
+    klen = np.diff(ko)
+    mat = np.zeros((len(klen), 16), dtype=np.uint8)
+    mat[np.arange(16)[None, :] < klen[:, None]] = kb
+    return mat, klen
+
+
+def sorted_segment(rng, mat, lens, rank, kv_bytes: int, source: int):
+    """One map segment: Zipf(1.3) words up to kv_bytes of keys and 8-byte
+    values, sorted by key on the host (numpy, stable), each value the
+    record's (source << 32 | index in the segment), big-endian.  Returns
+    (KVBatch, word ids in segment order)."""
+    from tez_tpu_torch.ops.runformat import KVBatch
+    est = kv_bytes // 9 + 1          # a record holds at least 9 bytes
+    ids = rng.zipf(ZIPF_A, est) % len(mat)
+    n = int(np.searchsorted(np.cumsum(lens[ids] + 8), kv_bytes,
+                            side="right"))
+    ids = ids[:n]
+    ids = ids[stable_order(rank[ids])]
+    kb, ko = ragged_keys(mat[ids], lens[ids])
+    vals = ((np.uint64(source) << np.uint64(32)) |
+            np.arange(n, dtype=np.uint64)).astype(">u8").view(np.uint8)
+    return KVBatch(kb, ko, vals, np.arange(n + 1, dtype=np.int64) * 8), ids
+
+
+class MergeProbe:
+    """Phase 9's witnesses, installed around one leg: each merge pass's
+    engine and records (the sorter module's routing decision), the device
+    part of the device merges (merge_path_runs: upload, kernels,
+    readback), and the bytes the manager reads back from disk (its
+    chunked runs whole, a disk-direct source's partition)."""
+
+    def __init__(self):
+        import threading
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        self.rounds = collections.Counter()
+        self.read_bytes = 0
+        self.device_calls, self.device_s = 0, 0.0
+
+    def __enter__(self):
+        from tez_tpu_torch.library import merge_manager as mm
+        from tez_tpu_torch.ops import device as dev_ops
+        from tez_tpu_torch.ops import sorter
+        from tez_tpu_torch.ops.runformat import FileRun
+        route, merge = sorter._route_engine, dev_ops.merge_path_runs
+        blocks = mm.ShuffleMergeManager._block_iter
+        self._saved = route, merge, blocks
+
+        def routing(engine, n, *a, **kw):
+            out = route(engine, n, *a, **kw)
+            with self.lock:
+                self.rounds[out] += 1
+                self.rounds[out + "_records"] += n
+            return out
+
+        def merging(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return merge(*a, **kw)
+            finally:
+                with self.lock:
+                    self.device_calls += 1
+                    self.device_s += time.perf_counter() - t0
+
+        def reading(mm_self, source):
+            if isinstance(source, str):
+                nbytes = os.path.getsize(source)
+            elif isinstance(source, mm._FileSource):
+                off = FileRun(source.path)._byte_off
+                nbytes = int(off[source.partition + 1] -
+                             off[source.partition])
+            else:
+                nbytes = 0
+            with self.lock:
+                self.read_bytes += nbytes
+            return blocks(mm_self, source)
+
+        sorter._route_engine = routing
+        dev_ops.merge_path_runs = merging
+        mm.ShuffleMergeManager._block_iter = reading
+        return self
+
+    def __exit__(self, *_):
+        from tez_tpu_torch.library import merge_manager as mm
+        from tez_tpu_torch.ops import device as dev_ops
+        from tez_tpu_torch.ops import sorter
+        (sorter._route_engine, dev_ops.merge_path_runs,
+         mm.ShuffleMergeManager._block_iter) = self._saved
+        return False
+
+
+class MergeLeg:
+    """One run of a phase-9 leg: zeroes the kernel launch counts, the peak
+    device memory and the histograms' baseline before it, and prints after
+    it the wall seconds and MB/s of KV, the merges on the card and on the
+    host, the histograms of the merge lane, disk written and read, peak
+    device memory and the launches; requires merge_path_pair > 0 and no
+    merge_rank on the card."""
+
+    def __init__(self, label, kv_bytes, device, totals, counters,
+                 require=("merge_path_pair",)):
+        self.label, self.kv, self.device = label, kv_bytes, device
+        self.totals, self.counters, self.names = totals, counters, require
+
+    def __enter__(self):
+        import torch
+        from tez_tpu_torch.common import metrics
+        hist = metrics.registry().histogram
+        self.h0 = {h: (hist(h).count, hist(h).sum_ms)
+                   for h in MERGE_HISTOGRAMS}
+        if is_cuda(self.device):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        self.launches = Launches(self.label, self.totals).__enter__()
+        self.probe = MergeProbe().__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        import torch
+        from tez_tpu_torch.common import metrics
+        from tez_tpu_torch.common.counters import TaskCounter
+        sync(self.device)
+        wall = time.perf_counter() - self.t0
+        self.probe.__exit__(exc_type, *exc)
+        self.launches.__exit__(exc_type, *exc)
+        if exc_type is not None:
+            return False
+        self.wall = wall
+        hist = metrics.registry().histogram
+        dh = {h: (hist(h).count - c, hist(h).sum_ms - m)
+              for h, (c, m) in self.h0.items()}
+        p = self.probe
+        peak = torch.cuda.max_memory_allocated() / 2**30 \
+            if is_cuda(self.device) else float("nan")
+        written = self.counters.find_counter(
+            TaskCounter.ADDITIONAL_SPILLS_BYTES_WRITTEN).value
+        log(f"phase merge {self.label}: wall_s={wall:.3f} "
+            f"MB={self.kv / 1e6:.1f} MB_per_s={self.kv / 1e6 / wall:.1f}")
+        log(f"merge {self.label}: merge passes on the card "
+            f"{p.rounds['device']} ({p.rounds['device_records']} records), "
+            f"on the host {p.rounds['host']} ({p.rounds['host_records']} "
+            f"records); merge_path_runs count={p.device_calls} "
+            f"sum_ms={p.device_s * 1e3:.3f}; disk bytes written {written} "
+            f"read {p.read_bytes}; peak device memory {peak:.3f} GiB; "
+            + "; ".join(f"histogram {h} count={c} sum_ms={m:.3f}"
+                        for h, (c, m) in dh.items()))
+        self.launches.require(self.device, *self.names)
+        return False
+
+
+def merged_stream_digest(blocks, on_block=None) -> tuple:
+    """sha256 of a merged stream's key bytes, key lengths and value bytes
+    (each independent of where the blocks are cut), and its record count;
+    on_block(batch) sees every block."""
+    import hashlib
+    hk, hl, hv, n = hashlib.sha256(), hashlib.sha256(), hashlib.sha256(), 0
+    for b in blocks:
+        hk.update(b.key_bytes.tobytes())
+        hl.update(np.diff(b.key_offsets).astype(np.int64).tobytes())
+        hv.update(b.val_bytes.tobytes())
+        n += b.num_records
+        if on_block is not None:
+            on_block(b)
+    return hk.hexdigest(), hl.hexdigest(), hv.hexdigest(), n
+
+
+def merge_counters(counters) -> dict:
+    """The manager's counters that do not measure time."""
+    return {g: {c: v for c, v in cs.items() if "MILLI" not in c}
+            for g, cs in counters.to_dict().items()
+            if not g.startswith("LatencyHistogram")}
+
+
+def check_merge_fault_free(label, mm, counters, breaker) -> None:
+    from tez_tpu_torch.ops.async_stage import COUNTER_GROUP
+    if mm._pipeline is not None:
+        st = mm._pipeline.stats
+        check(st.failovers == 0 and st.watchdog_fires == 0 and
+              st.oom_splits == 0,
+              f"{label}: fault-free run took the containment ladder "
+              f"{st.to_dict()}")
+    moved = {k: v for k, v in counters.to_dict().get(COUNTER_GROUP,
+                                                      {}).items() if v}
+    check(not moved, f"{label}: DeviceFailover counters moved {moved}")
+    check(breaker.state == "closed" and breaker.trips == 0,
+          f"{label}: breaker {breaker.state}, {breaker.trips} trips")
+
+
+def merge_manager_for(counters, budget, spill_dir, device, breaker,
+                      **kw):
+    from tez_tpu_torch.library.merge_manager import ShuffleMergeManager
+    return ShuffleMergeManager(counters, budget, spill_dir, breaker=breaker,
+                               device=device, **dict(MERGE_KNOBS, **kw))
+
+
+def fresh_breaker():
+    """A breaker with the library's defaults, one a run: a fault-free run
+    must leave it closed with no trips."""
+    from tez_tpu_torch.ops import sorter
+    from tez_tpu_torch.ops.async_stage import CircuitBreaker
+    return CircuitBreaker(failures=sorter.DEVICE_BREAKER_FAILURES,
+                          cooldown_ms=sorter.DEVICE_BREAKER_COOLDOWN_MS)
+
+
+def paced_commits(mm, batches) -> None:
+    """One fetch thread commits in slot order and waits after each commit
+    until the merger is idle, so which batches each merge takes does not
+    depend on thread timing."""
+    for slot, b in enumerate(batches):
+        check(mm.commit(slot, b), f"commit {slot} dropped")
+        check(mm.quiesce(timeout=600), "merger never went idle")
+
+
+def merge_leg_a(sz, rng, vocab, device, root, totals) -> None:
+    """Leg A: one reducer's input through 8 fetch threads."""
+    import queue
+    import threading
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.ops.runformat import PartitionedRunWriter
+    mat, lens, rank = vocab
+    mib = 1 << 20
+    segs, ids = [], []
+    t0 = time.perf_counter()
+    for s in range(sz["segments_a"] + sz["skews_a"] + sz["locals_a"]):
+        mb = sz["skew_mb"] if sz["segments_a"] <= s < \
+            sz["segments_a"] + sz["skews_a"] else sz["seg_mb"]
+        batch, sids = sorted_segment(rng, mat, lens, rank, int(mb * mib), s)
+        segs.append(batch)
+        ids.append(sids)
+    skews = range(sz["segments_a"], sz["segments_a"] + sz["skews_a"])
+    locals_ = range(sz["segments_a"] + sz["skews_a"], len(segs))
+    # each disk-direct source is partition s % 4 of a producer's
+    # partition-indexed file (the other partitions belong to other
+    # reducers; empty here)
+    work = []
+    for s in range(len(segs)):
+        if s in locals_:
+            path = os.path.join(root, f"producer_{s}.prun")
+            w = PartitionedRunWriter(path, NUM_PARTITIONS)
+            w.append(segs[s], s % NUM_PARTITIONS)
+            w.close()
+            work.append(("file", s, path, segs[s].nbytes))
+            segs[s] = None
+        else:
+            work.append(("mem", s, segs[s], segs[s].nbytes))
+    order = rng.permutation(len(work))
+    counts = np.array([len(i) for i in ids], dtype=np.int64)
+    base = np.zeros(len(ids) + 1, dtype=np.int64)
+    np.cumsum(counts, out=base[1:])
+    all_ids = np.concatenate(ids)
+    total = int(base[-1])
+    kv = int(lens[all_ids].sum()) + 8 * total
+    skew_bytes = sum(work[s][3] for s in skews)
+    log(f"merge A: {len(work)} sources, {total} records, {kv} bytes of KV "
+        f"({kv / mib:.1f} MiB), made in {time.perf_counter() - t0:.3f} s")
+    q: "queue.Queue" = queue.Queue()
+    for i in order:
+        q.put(work[i])
+    del work, segs
+    spill_dir = tempfile.mkdtemp(dir=root)
+    counters, breaker = TezCounters(), fresh_breaker()
+    errors = []
+
+    def fetcher():
+        try:
+            while True:
+                try:
+                    kind, slot, obj, nbytes = q.get_nowait()
+                except queue.Empty:
+                    return
+                ok = mm.commit(slot, obj) if kind == "mem" else \
+                    mm.commit_local_file(slot, obj, slot % NUM_PARTITIONS,
+                                         nbytes)
+                check(ok, f"merge A: commit of source {slot} dropped")
+        except BaseException as e:   # noqa: BLE001 -- re-raised below
+            errors.append(e)
+
+    # each record's position in the merged stream, by its index in the
+    # input; the rank of the last key seen; blocks whose checks failed
+    pos = np.full(total, -1, dtype=np.int64)
+    at, last_rank, bad = [0], [0], []
+
+    def on_block(b):
+        v = b.val_bytes.view(">u8")
+        src = (v >> np.uint64(32)).astype(np.int64)
+        g = base[src] + (v & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        out_ids = all_ids[g]
+        kb, ko = ragged_keys(mat[out_ids], lens[out_ids])
+        if not (np.array_equal(b.key_offsets - b.key_offsets[0], ko) and
+                np.array_equal(b.key_bytes[:len(kb)], kb)):
+            bad.append(at[0])
+        pos[g] = np.arange(at[0], at[0] + len(g))
+        r = rank[out_ids]
+        if len(r) and (r[0] < last_rank[0] or bool((np.diff(r) < 0).any())):
+            bad.append(at[0])
+        if len(r):
+            last_rank[0] = r[-1]
+        at[0] += len(g)
+
+    with MergeLeg("A", kv, device, totals, counters) as leg:
+        mm = merge_manager_for(counters, sz["budget"], spill_dir, device,
+                               breaker, instrument=True,
+                               device_min_records=sz["device_min_records"])
+        threads = [threading.Thread(target=fetcher, name=f"fetch-{i}")
+                   for i in range(MERGE_FETCHERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        t_fin = time.perf_counter()
+        result = mm.finish()
+        check(result.is_streaming, "merge A: the final merge is not "
+                                   "streamed")
+        digest = merged_stream_digest(result.stream.iter_batches(),
+                                      on_block)
+        log(f"merge A: commits {t_fin - leg.t0:.3f} s, finish and the "
+            f"streamed final merge {time.perf_counter() - t_fin:.3f} s")
+    c = merge_counters(counters)["TaskCounter"]
+    log(f"merge A: counters {json.dumps(c)}")
+    check(digest[3] == total, f"merge A: {digest[3]} records of {total}")
+    check(not bad, f"merge A: keys or order wrong in blocks at {bad[:5]}")
+    # every record once, and each source's records in the source's order
+    check(bool((pos >= 0).all()), "merge A: records missing")
+    inner = np.ones(total - 1, dtype=bool)
+    inner[base[1:-1] - 1] = False
+    check(bool((np.diff(pos)[inner] > 0).all()),
+          "merge A: a source's records left their order")
+    check(c.get("NUM_MEM_TO_DISK_MERGES", 0) >= 3,
+          f"merge A: {c.get('NUM_MEM_TO_DISK_MERGES')} mem->disk merges")
+    check(c.get("SHUFFLE_BYTES_TO_DISK") == skew_bytes,
+          f"merge A: SHUFFLE_BYTES_TO_DISK {c.get('SHUFFLE_BYTES_TO_DISK')}"
+          f" != {skew_bytes}")
+    check_merge_fault_free("merge A", mm, counters, breaker)
+    # the lane runs each whole merge in its dispatch stage: far inside the
+    # dispatch watchdog (the sorter's default, 60 s)
+    edges = {(ids, stage, edge): t
+             for ids, stage, edge, t in mm.pipeline_events()}
+    dispatch_s = sorted(edges[(ids, st, "end")] - t
+                        for (ids, st, edge), t in edges.items()
+                        if st == "device.dispatch" and edge == "start")
+    log(f"merge A: the lane's dispatch stage per merge, seconds: "
+        f"{[round(d, 3) for d in dispatch_s]}")
+    check(len(dispatch_s) == c["NUM_MEM_TO_DISK_MERGES"] and
+          (not is_cuda(device) or max(dispatch_s) < 15.0),
+          f"merge A: dispatch stages {dispatch_s} (a quarter of the 60 s "
+          f"watchdog is 15 s)")
+    log(f"merge A: {total} records in key order, each source in its own "
+        f"order, {c['NUM_MEM_TO_DISK_MERGES']} mem->disk merges, "
+        f"{sz['skews_a']} DISK admissions, peak host batches "
+        f"{mm.peak_mem_bytes} of a {sz['budget']} byte budget")
+    mm.cleanup()
+    shutil.rmtree(spill_dir)
+
+
+def merge_leg_b_c_e(sz, rng, vocab, device, root, totals) -> None:
+    """Legs B, C and E: paced commits, async_depth 2 against 0, and B's
+    input under the merge lane's faults."""
+    from tez_tpu_torch.common import faults
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.ops.async_stage import CircuitBreaker, COUNTER_GROUP
+    mat, lens, rank = vocab
+    mib = 1 << 20
+
+    def segments(n, mb, skew_at=None):
+        out = []
+        for s in range(n + (skew_at is not None)):
+            big = skew_at is not None and s == skew_at
+            out.append(sorted_segment(rng, mat, lens, rank,
+                                      int((sz["skew_mb"] if big else mb)
+                                          * mib), s)[0])
+        return out
+
+    def run(label, batches, budget, breaker=None, spec=None, **kw):
+        faults.clear_all()
+        if spec:
+            faults.install("smoke", faults.parse_spec(spec))
+        spill_dir = tempfile.mkdtemp(dir=root)
+        counters = TezCounters()
+        breaker = breaker or fresh_breaker()
+        kv = sum(int(b.key_offsets[-1] + b.val_offsets[-1]) for b in batches)
+        try:
+            with MergeLeg(label, kv, device, totals, counters):
+                mm = merge_manager_for(
+                    counters, budget, spill_dir, device, breaker,
+                    device_min_records=sz["device_min_records"], **kw)
+                paced_commits(mm, batches)
+                result = mm.finish()
+                digest = merged_stream_digest(
+                    result.stream.iter_batches() if result.is_streaming
+                    else [result.batch])
+        finally:
+            faults.clear_all()
+        mm.cleanup()
+        shutil.rmtree(spill_dir)
+        return digest, mm, counters, breaker
+
+    # -- B: determinism across async depths ---------------------------------
+    b_in = segments(sz["segments_b"], sz["seg_mb"],
+                    skew_at=sz["segments_b"] // 2)
+    outs = {}
+    for depth in (2, 0):
+        outs[depth] = run(f"B depth {depth}", b_in, sz["budget"],
+                          async_depth=depth)
+        check_merge_fault_free(f"merge B depth {depth}", outs[depth][1],
+                               outs[depth][2], outs[depth][3])
+    (d2, mm2, c2, _), (d0, _mm0, c0, _) = outs[2], outs[0]
+    check(d2 == d0, "merge B: depth 2 and depth 0 merged different bytes")
+    check(merge_counters(c2) == merge_counters(c0),
+          f"merge B: counters differ {merge_counters(c2)} vs "
+          f"{merge_counters(c0)}")
+    cb = merge_counters(c2)["TaskCounter"]
+    check(cb.get("NUM_MEM_TO_DISK_MERGES", 0) >= 2 and
+          cb.get("SHUFFLE_BYTES_TO_DISK") == b_in[sz["segments_b"] // 2]
+          .nbytes, f"merge B: counters {cb}")
+    check(d2[3] == sum(b.num_records for b in b_in), "merge B: records")
+    log(f"merge B: depth 2 and depth 0 byte-identical ({d2[3]} records), "
+        f"counters identical {json.dumps(cb)}")
+
+    # -- E: B's input under the merge lane's faults --------------------------
+    d, mm, c, _br = run("E oom", b_in, sz["budget"],
+                        spec="device.dispatch.oom:fail:n=1,exc=runtime,"
+                             "match=span=0",
+                        breaker=CircuitBreaker(failures=100))
+    fo = c.to_dict().get(COUNTER_GROUP, {})
+    check(d == d2, "merge E oom: output differs from leg B's")
+    check(fo.get("device.oom.split_attempts") == 1 and
+          fo.get("device.oom.split_success") == 1 and
+          not fo.get("device.failover.spans") and
+          mm._pipeline.stats.failovers == 0,
+          f"merge E oom: split ladder counters {fo}")
+    log(f"merge E oom: split on the card, no failover, byte-identical "
+        f"{json.dumps(fo)}")
+    t0 = time.perf_counter()
+    d, mm, c, _br = run("E hang", b_in, sz["budget"],
+                        spec=f"device.dispatch.hang:delay:ms="
+                             f"{sz['hang_ms']},n=1,match=span=0",
+                        breaker=CircuitBreaker(failures=100),
+                        watchdog_dispatch_ms=500)
+    fo = c.to_dict().get(COUNTER_GROUP, {})
+    # the abandoned dispatch sleeps out its hang on the lane's staging
+    # thread: wait for it, so that no thread of the phase outlives it
+    staging = mm._pipeline._staging
+    staging.join(timeout=sz["hang_ms"] / 1e3 + 60)
+    check(not staging.is_alive(), "merge E hang: the staging thread never "
+                                  "came back from the hang")
+    check(d == d2, "merge E hang: output differs from leg B's")
+    check(fo.get("device.watchdog.dispatch_fires") == 1 and
+          fo.get("device.failover.spans", 0) >= 1,
+          f"merge E hang: watchdog counters {fo}")
+    log(f"merge E hang: {sz['hang_ms']} ms hang against a 500 ms watchdog, "
+        f"host failover, byte-identical, {time.perf_counter() - t0:.3f} s "
+        f"with the wait for the hang to end {json.dumps(fo)}")
+    br = CircuitBreaker(failures=1, cooldown_ms=3_600_000)
+    d, mm, c, _br = run("E breaker", b_in, sz["budget"], breaker=br,
+                        spec="device.readback.fail:fail:n=1,exc=io,"
+                             "match=span=0")
+    fo = c.to_dict().get(COUNTER_GROUP, {})
+    check(d == d2, "merge E breaker: output differs from leg B's")
+    check(br.trips == 1 and br.state == "open" and
+          fo.get("device.breaker.short_circuits", 0) >= 1 and
+          fo.get("device.failover.spans", 0) >= 2,
+          f"merge E breaker: {br.trips} trips, state {br.state}, {fo}")
+    log(f"merge E breaker: tripped once, later merges short-circuited to "
+        f"the host, byte-identical {json.dumps(fo)}")
+    del b_in
+
+    # -- C: the disk cascade --------------------------------------------------
+    c_in = segments(sz["c_segments"], sz["c_seg_mb"])
+    budget = int(sz["c_budget_mb"] * mib)
+    outs = {depth: run(f"C depth {depth}", c_in, budget, merge_factor=4,
+                       async_depth=depth) for depth in (2, 0)}
+    for depth, (_d, mm, c, br) in outs.items():
+        check_merge_fault_free(f"merge C depth {depth}", mm, c, br)
+    check(outs[2][0] == outs[0][0],
+          "merge C: depth 2 and depth 0 merged different bytes")
+    cc = merge_counters(outs[2][2])["TaskCounter"]
+    check(cc.get("NUM_DISK_TO_DISK_MERGES", 0) >= 1,
+          f"merge C: no disk cascade on the async lane {cc}")
+    log(f"merge C: depth 2 and depth 0 byte-identical "
+        f"({outs[2][0][3]} records), counters {json.dumps(cc)}")
+
+
+def normalized_nondecreasing(kb, ko, which: str) -> bool:
+    """True when ragged keys are in order under the normalizer `which`
+    ("case": ASCII lower case; "reverse": complemented bytes, shorter
+    first among prefixes)."""
+    mat, klen = key_matrix(kb, ko)
+    if which == "case":
+        mat = mat + ((mat >= 65) & (mat <= 90)).astype(np.uint8) * 32
+    else:
+        mat = np.where(np.arange(16)[None, :] < klen[:, None], 255 - mat, 0)\
+            .astype(np.uint8)
+    w = mat.view(">u8").astype(np.uint64)
+    hi, lo = w[:, 0], w[:, 1]
+    le = (hi[:-1] < hi[1:]) | ((hi[:-1] == hi[1:]) & (
+        (lo[:-1] < lo[1:]) | ((lo[:-1] == lo[1:]) &
+                              (klen[:-1] <= klen[1:]))))
+    return bool(le.all())
+
+
+def merge_leg_d(sz, rng, device, root, totals) -> None:
+    """Leg D: two spilling sorters and one manager under each comparator."""
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.library.comparators import (
+        CaseInsensitiveKeyComparator, ReverseByteKeyComparator)
+    from tez_tpu_torch.ops.runformat import FileRun, KVBatch
+    from tez_tpu_torch.ops.sorter import DeviceSorter
+    mat, lens = bulk_word_vocab(rng, sz["d_vocab"])
+    span_bytes = int(sz["d_span_mb"] * (1 << 20))
+    inputs = []
+    for sorter_id in range(2):
+        keys, spans = [], []
+        start = 0
+        for _span in range(sz["d_spans"]):
+            est = span_bytes // 25 + 1
+            ids = rng.zipf(ZIPF_A, est) % len(mat)
+            acct = np.cumsum(lens[ids] + 8 + 16) + 16
+            n = int(np.searchsorted(acct, span_bytes)) + 1
+            check(n <= est, "merge D: span estimate too small")
+            ids = ids[:n]
+            # mixed case: each letter upper case with probability 1/4
+            m = mat[ids] - (rng.random((n, 16)) < 0.25).astype(np.uint8) * \
+                (mat[ids] > 0) * np.uint8(32)
+            kb, ko = ragged_keys(m, lens[ids])
+            vals = ((np.uint64(sorter_id) << np.uint64(32)) |
+                    np.arange(start, start + n, dtype=np.uint64))\
+                .astype(">u8").view(np.uint8)
+            spans.append(KVBatch(kb, ko, vals,
+                                 np.arange(n + 1, dtype=np.int64) * 8))
+            keys.append(m)
+            start += n
+        inputs.append((spans, np.concatenate(keys)))
+    for which, cmp in (("case", CaseInsensitiveKeyComparator),
+                       ("reverse", ReverseByteKeyComparator)):
+        norm = cmp().normalize
+        counters = TezCounters()
+        kv = sum(int(b.key_offsets[-1] + b.val_offsets[-1])
+                 for spans, _k in inputs for b in spans)
+        with MergeLeg(f"D {which}", kv, device, totals, counters,
+                      require=("merge_path_pair", "fnv_hash_bytes")) as leg:
+            files = []
+            for spans, _k in inputs:
+                s = DeviceSorter(num_partitions=NUM_PARTITIONS, key_width=16,
+                                 span_budget_bytes=span_bytes,
+                                 spill_dir=tempfile.mkdtemp(dir=root),
+                                 engine="device", pipeline_depth=2,
+                                 key_normalizer=norm, device=device)
+                for b in spans:
+                    s.write_batch(b)
+                fr = s.flush_run()
+                check(isinstance(fr, FileRun) and
+                      s.num_spills == sz["d_spans"],
+                      f"merge D {which}: {s.num_spills} spans, "
+                      f"{type(fr).__name__}")
+                files.append(fr)
+            t_map = time.perf_counter() - leg.t0
+            leg.probe.reset()         # the merges below are the manager's
+            spill_dir = tempfile.mkdtemp(dir=root)
+            breaker = fresh_breaker()
+            mm = merge_manager_for(
+                counters, int(sz["d_budget_mb"] * (1 << 20)), spill_dir,
+                device, breaker, key_normalizer=norm,
+                device_min_records=sz["device_min_records"])
+            slot = 0
+            for p in range(NUM_PARTITIONS):       # producer 0: fetched
+                for block in files[0].iter_partition_blocks(p):
+                    check(mm.commit(slot, block), "merge D: commit dropped")
+                    slot += 1
+            for p in range(NUM_PARTITIONS):       # producer 1: disk-direct
+                check(mm.commit_local_file(slot, files[1].path, p,
+                                           files[1].partition_nbytes(p)),
+                      "merge D: disk-direct source dropped")
+                slot += 1
+            result = mm.finish()
+            out = [b for b in (result.stream.iter_batches()
+                               if result.is_streaming else [result.batch])]
+        log(f"merge D {which}: map side (two sorters) {t_map:.3f} s (the "
+            f"merge passes printed are the manager's), "
+            f"streamed={result.is_streaming}, counters "
+            f"{json.dumps(merge_counters(counters)['TaskCounter'])}")
+        check_merge_fault_free(f"merge D {which}", mm, counters, breaker)
+        # the map side: every record in the partition of its raw bytes'
+        # FNV, each partition in normalized order
+        for i, fr in enumerate(files):
+            for p in range(NUM_PARTITIONS):
+                b = fr.partition(p)
+                m, klen = key_matrix(b.key_bytes, b.key_offsets)
+                check(bool((fnv_np(m, klen) % NUM_PARTITIONS == p).all()),
+                      f"merge D {which}: sorter {i} partition {p} holds "
+                      f"keys of another partition")
+                check(normalized_nondecreasing(b.key_bytes, b.key_offsets,
+                                               which),
+                      f"merge D {which}: sorter {i} partition {p} order")
+        # the reduce side: normalized order over all, the input multiset
+        batch = KVBatch.concat(out)
+        check(normalized_nondecreasing(batch.key_bytes, batch.key_offsets,
+                                       which),
+              f"merge D {which}: merged records out of normalized order")
+        v = batch.val_bytes.view(">u8")
+        src = (v >> np.uint64(32)).astype(np.int64)
+        idx = (v & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        n0 = len(inputs[0][1])
+        g = np.where(src == 0, idx, n0 + idx)
+        total = n0 + len(inputs[1][1])
+        seen = np.zeros(total, dtype=bool)
+        seen[g] = True
+        check(len(g) == total and bool(seen.all()),
+              f"merge D {which}: {len(g)} records of {total}")
+        m, klen = key_matrix(batch.key_bytes, batch.key_offsets)
+        want = np.concatenate([k for _s, k in inputs])[g]
+        check(np.array_equal(m, want),
+              f"merge D {which}: a record's key changed")
+        log(f"merge D {which}: {total} records, partitions by raw-byte FNV, "
+            f"in normalized order, the input multiset")
+        mm.cleanup()
+        for fr in files:
+            fr.delete()
+
+
+def merge_phase(args, device="cuda", **sizes) -> dict:
+    """Phase 9; returns the kernel launches of its legs."""
+    sz = dict(MERGE_SIZES, **sizes)
+    rng = np.random.default_rng(args.seed + 9)
+    t0 = time.perf_counter()
+    mat, lens = bulk_word_vocab(rng, sz["vocab_size"])
+    vocab = (mat, lens, key_rank(mat, lens))
+    log(f"merge: vocabulary of {sz['vocab_size']} words in "
+        f"{time.perf_counter() - t0:.3f} s")
+    totals: collections.Counter = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="tez_merge_") as root:
+        merge_leg_a(sz, rng, vocab, device, root, totals)
+        merge_leg_b_c_e(sz, rng, vocab, device, root, totals)
+        merge_leg_d(sz, rng, device, root, totals)
+    log("merge: legs A-E passed")
+    return dict(totals)
+
+
 class SettableClock:
     """A clock that stands still until advanced: the breaker's cooldown
     in phase 7 elapses when the script says so, not by wall time."""
@@ -1426,20 +2148,26 @@ def main(argv=None) -> int:
     spill_launches = spill_phase(args)
     log(f"spill: {time.perf_counter() - t0:.3f} s, launches "
         f"{json.dumps(spill_launches)}")
+    t0 = time.perf_counter()
+    log(f"merge phase on {card}")
+    merge_launches = merge_phase(args)
+    log(f"merge: {time.perf_counter() - t0:.3f} s, launches "
+        f"{json.dumps(merge_launches)}")
     launches = collections.Counter(launches)
     launches.update(spill_launches)
+    launches.update(merge_launches)
     for kname, row in rows.items():
         row["launches"] = launches[kname]
     for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:
         for kname in names:
             log(f"launch check: {tpu_kernel} ({where}) -> {kname}: "
-                f"{launches[kname]} launches on the slice and the spill "
-                f"path")
+                f"{launches[kname]} launches on the slice, the spill "
+                f"path and the merge legs")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
         f"counterpart, held in phase 2): {launches['merge_rank']} launches "
-        f"on the slice and the spill path")
+        f"on the slice, the spill path and the merge legs")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

@@ -813,3 +813,252 @@ def _lanes12(batch):
     from tez_tpu_torch.ops.keycodec import matrix_to_lanes, pad_to_matrix
     mat, lengths = pad_to_matrix(batch.key_bytes, batch.key_offsets, 12)
     return matrix_to_lanes(mat), lengths
+
+
+# -- the reduce side's bounded-memory merge (library/merge_manager.py) --------
+def _word_segments(seed, n_segments, n, vocab=200_000, unique=False):
+    """Sorted segments of 1-16 byte words whose values name (segment,
+    index).  unique=True draws every key once across all segments, so the
+    merged order does not depend on which segment arrives first."""
+    rng = np.random.default_rng(seed)
+    lens_v = rng.integers(1, 17, vocab)
+    mat = rng.integers(97, 123, (vocab, 16)).astype(np.uint8)
+    mat[np.arange(16)[None, :] >= lens_v[:, None]] = 0
+    _, first = np.unique(mat.view(np.dtype((np.void, 16))).ravel(),
+                         return_index=True)
+    mat, lens_v = mat[np.sort(first)], lens_v[np.sort(first)]
+    order = np.lexsort((lens_v,) + tuple(
+        mat.view(">u4")[:, i] for i in range(3, -1, -1)))
+    rank = np.empty(len(mat), np.int64)
+    rank[order] = np.arange(len(mat))
+    pool = rng.permutation(len(mat))
+    out = []
+    for s in range(n_segments):
+        m = n[s] if isinstance(n, (list, tuple)) else n
+        ids = pool[s * m:(s + 1) * m] if unique else \
+            rng.zipf(1.3, m) % len(mat)
+        ids = ids[np.argsort(rank[ids], kind="stable")]
+        klen = lens_v[ids]
+        ko = np.zeros(m + 1, np.int64)
+        np.cumsum(klen, out=ko[1:])
+        vals = ((np.uint64(s) << np.uint64(32)) |
+                np.arange(m, dtype=np.uint64)).astype(">u8").view(np.uint8)
+        out.append(KVBatch(mat[ids][np.arange(16)[None, :] < klen[:, None]],
+                           ko, vals, np.arange(m + 1, dtype=np.int64) * 8))
+    return out
+
+
+def _manager_run(batches, device, tmp_path, tag, budget, async_depth=2,
+                 locals_=(), **kw):
+    """Paced commits (the merger idle after each) into a manager on
+    `device`, then the final merge: (merged arrays, counters, digests of
+    the files left, manager)."""
+    import hashlib
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.library.merge_manager import ShuffleMergeManager
+    from tez_tpu_torch.ops.runformat import PartitionedRunWriter
+    spill = tmp_path / f"spill_{tag}"
+    spill.mkdir()
+    counters = TezCounters()
+    mm = ShuffleMergeManager(counters, budget, str(spill),
+                             async_depth=async_depth, device=device, **kw)
+    for slot, b in enumerate(batches):
+        if slot in locals_:
+            path = str(tmp_path / f"producer_{tag}_{slot}.prun")
+            w = PartitionedRunWriter(path, 2)
+            w.append(b, 1)
+            w.close()
+            assert mm.commit_local_file(slot, path, 1, b.nbytes)
+        else:
+            assert mm.commit(slot, b)
+        assert mm.quiesce(timeout=600)
+    result = mm.finish()
+    blocks = list(result.stream.iter_batches()) if result.is_streaming \
+        else [result.batch]
+    merged = KVBatch.concat(blocks)
+    files = sorted(hashlib.sha256(open(os.path.join(spill, f), "rb").read())
+                   .hexdigest() for f in os.listdir(spill))
+    c = {g: {k: v for k, v in cs.items() if "MILLI" not in k}
+         for g, cs in counters.to_dict().items()
+         if not g.startswith("LatencyHistogram")}
+    mm.cleanup()
+    return (merged.key_bytes, merged.key_offsets, merged.val_bytes), c, \
+        files, mm
+
+
+def _same_arrays(a, b):
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_merge_manager_matches_host(cuda, tmp_path):
+    """ShuffleMergeManager on the card, mem->disk merges, a DISK
+    admission, disk-direct sources and the streamed final merge, against
+    the same paced commits on the host (the kernels' plain versions):
+    merged bytes, counters and the files left equal."""
+    batches = _word_segments(41, 24, 60_000)
+    batches[7] = _word_segments(42, 1, 400_000)[0]        # over max_single
+    budget = sum(b.nbytes for b in batches) // 4
+    runs = {dev: _manager_run(batches, dev, tmp_path, dev, budget,
+                              locals_=(20, 21)) for dev in ("cuda", "cpu")}
+    _same_arrays(runs["cuda"][0], runs["cpu"][0])
+    assert runs["cuda"][1:3] == runs["cpu"][1:3]
+    c = runs["cuda"][1]["TaskCounter"]
+    assert c["NUM_MEM_TO_DISK_MERGES"] >= 2 and c["SHUFFLE_BYTES_TO_DISK"] > 0
+    assert not _failovers(runs["cuda"][3].counters)
+
+
+def test_merge_manager_async_matches_sync_on_the_card(cuda, tmp_path):
+    """The async merge lane (depth 2) and the synchronous merger (depth 0)
+    merge the same bytes with the same counters, including disk cascades
+    (merge factor 4)."""
+    from tez_tpu_torch.ops import kernels
+    batches = _word_segments(43, 40, 70_000)
+    budget = sum(b.nbytes for b in batches) // 6
+    kernels.reset_launches()
+    runs = {d: _manager_run(batches, "cuda", tmp_path, f"d{d}", budget,
+                            async_depth=d, merge_factor=4) for d in (2, 0)}
+    _same_arrays(runs[2][0], runs[0][0])
+    assert runs[2][1:3] == runs[0][1:3]
+    assert runs[2][1]["TaskCounter"]["NUM_DISK_TO_DISK_MERGES"] >= 1
+    assert kernels.launches["merge_path_pair"] > 0
+    assert kernels.launches["merge_rank"] == 0
+
+
+def test_merge_real_out_of_memory_takes_the_split(cuda, tmp_path):
+    """A real torch.cuda.OutOfMemoryError in a merge on the async lane:
+    one long batch and seven short ones, so the whole merge pads every run
+    to the long run's bucket while each half, and the merge of the halves,
+    needs about half of it.  With device memory capped between the two
+    peaks (measured here), the merge runs out, the split ladder merges the
+    halves on the card (no host failover), and the bytes equal the
+    uncapped merge's."""
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.library.merge_manager import ShuffleMergeManager
+    from tez_tpu_torch.ops.async_stage import CircuitBreaker
+    sizes = [(1 << 18) + 1] + [3000] * 7
+    batches = _word_segments(44, 8, sizes)
+    total = sum(b.nbytes for b in batches)
+    items = [(s, s, b) for s, b in enumerate(batches)]
+    probe = ShuffleMergeManager(TezCounters(), 0, str(tmp_path),
+                                device="cuda", device_min_records=0)
+
+    def peak(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base, base
+
+    want, whole, base = peak(lambda: probe._merge_mem_items(items))
+    _h, half0, _b = peak(lambda: probe._merge_mem_items(items[:4]))
+    _h, half1, _b = peak(lambda: probe._merge_mem_items(items[4:]))
+    halves = [probe._merge_mem_items(items[:4]),
+              probe._merge_mem_items(items[4:])]
+    _h, joined, _b = peak(lambda: probe._merge_runs(halves, "device"))
+    split = max(half0, half1, joined)
+    print(f"merge peaks: whole {whole} B, halves {half0} / {half1} B, "
+          f"their merge {joined} B")
+    assert split < 0.8 * whole, (split, whole)
+    frac = (split + whole) / 2
+    counters = TezCounters()
+    errors = []
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.set_per_process_memory_fraction(
+        (base + int(frac)) / torch.cuda.get_device_properties(0)
+        .total_memory)
+    try:
+        mm = ShuffleMergeManager(
+            counters, total, str(tmp_path), device="cuda",
+            device_min_records=0, merge_threshold=1.0,
+            max_single_fraction=1.0, async_depth=2,
+            breaker=CircuitBreaker(failures=100))
+        retry = mm._pipeline._oom_retry_fn
+
+        def traced(ids, payloads):
+            try:
+                return retry(ids, payloads)
+            except BaseException as e:
+                errors.append(repr(e)[:300])
+                raise
+        mm._pipeline._oom_retry_fn = traced
+        for s, b in enumerate(batches):
+            assert mm.commit(s, b)
+        assert mm.quiesce(timeout=600)
+        result = mm.finish()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    got = KVBatch.concat(list(result.stream.iter_batches())) \
+        if result.is_streaming else result.batch
+    fo = _failovers(counters)
+    assert fo.get("device.oom.split_attempts") == 1, (fo, errors)
+    assert fo.get("device.oom.split_success") == 1, (fo, errors)
+    assert "device.failover.spans" not in fo, fo
+    _same_arrays((got.key_bytes, got.val_bytes),
+                 (want.batch.key_bytes, want.batch.val_bytes))
+    mm.cleanup()
+
+
+def test_merge_manager_fetch_race_probe(cuda, tmp_path):
+    """8 fetch threads commit while the async lane merges on its stream,
+    5 times: the keys are unique, so every run must merge to the one
+    sorted order whatever the arrival order; a missing stream wait or
+    record_stream shows up as wrong bytes."""
+    import queue
+    import threading
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.library.merge_manager import ShuffleMergeManager
+    batches = _word_segments(45, 32, 50_000, vocab=3_000_000, unique=True)
+    allk = KVBatch.concat(batches)
+    klen = np.diff(allk.key_offsets)
+    mat = np.zeros((allk.num_records, 16), np.uint8)
+    mat[np.arange(16)[None, :] < klen[:, None]] = allk.key_bytes
+    order = np.lexsort((klen,) + tuple(mat.view(">u4")[:, i]
+                                       for i in range(3, -1, -1)))
+    want = allk.take(order)
+    budget = sum(b.nbytes for b in batches) // 5
+    for rep in range(5):
+        counters = TezCounters()
+        spill = tmp_path / f"race{rep}"
+        spill.mkdir()
+        mm = ShuffleMergeManager(counters, budget, str(spill), device="cuda",
+                                 async_depth=2)
+        q = queue.Queue()
+        for s in np.random.default_rng(rep).permutation(len(batches)):
+            q.put(int(s))
+        errors = []
+
+        def fetch():
+            try:
+                while True:
+                    try:
+                        s = q.get_nowait()
+                    except queue.Empty:
+                        return
+                    assert mm.commit(s, batches[s])
+            except BaseException as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=fetch) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        result = mm.finish()
+        got = KVBatch.concat(list(result.stream.iter_batches())) \
+            if result.is_streaming else result.batch
+        np.testing.assert_array_equal(got.key_bytes, want.key_bytes)
+        np.testing.assert_array_equal(got.val_bytes, want.val_bytes)
+        assert not _failovers(counters)
+        assert counters.to_dict()["TaskCounter"][
+            "NUM_MEM_TO_DISK_MERGES"] >= 2
+        mm.cleanup()
+        torch.cuda.synchronize()

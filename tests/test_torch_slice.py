@@ -110,8 +110,9 @@ def test_import_guard_no_jax_no_tez_tpu():
         sys.modules["jax"] = None
         import tez_tpu_torch
         from tez_tpu_torch.common import (clock, counters, faults, metrics,
-                                          tracing)
-        from tez_tpu_torch.library import partitioners
+                                          payload, tracing)
+        from tez_tpu_torch.library import (comparators, merge_manager,
+                                           partitioners, util)
         from tez_tpu_torch.obs import flight
         from tez_tpu_torch.ops import (_build, async_stage, block_merge,
                                        device, device_pipeline, host_sort,

@@ -157,17 +157,28 @@ def test_sum_long_combiner_matches():
 
 
 def test_deferred_features_raise(tmp_path):
-    # the async span plane is ported: pipeline_depth > 0 builds a sorter
+    """Once deferred, now ported (the name is kept): the async span plane,
+    host spill, and key normalizers, which the sorter and merge_sorted_runs
+    take with tez_tpu's results."""
     assert tsorter.DeviceSorter(2, pipeline_depth=2,
                                 device="cpu").pipeline_depth == 2
-    # host spill is ported: a spill directory builds a sorter
     s = tsorter.DeviceSorter(2, spill_dir=str(tmp_path), device="cpu")
     assert s.spill_dir == str(tmp_path) and s.mem_budget == 2 * s.span_budget
-    with pytest.raises(NotImplementedError):
-        tsorter.DeviceSorter(2, key_normalizer=lambda k: k, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsorter.merge_sorted_runs([], 2, 8, key_normalizer=lambda k: k,
-                                  device="cpu")
+    norm = bytes.upper
+    pairs = [(k.upper() if i % 3 else k, v) for i, (k, v) in
+             enumerate(_pairs(7, 600, 10))]
+    ts, js, trun, jrun = _both(dict(num_partitions=2, key_width=8,
+                                    span_budget_bytes=4000,
+                                    device_min_records=0,
+                                    key_normalizer=norm), pairs=pairs)
+    assert ts.num_spills > 1
+    _assert_same_run(trun, jrun)
+    keys = [norm(k) for k, _v in trun.partition(0).iter_pairs()]
+    assert keys == sorted(keys)
+    empty = tsorter.merge_sorted_runs([], 2, 8, key_normalizer=norm,
+                                      device="cpu")
+    _assert_same_run(empty, jsorter.merge_sorted_runs([], 2, 8,
+                                                      key_normalizer=norm))
 
 
 def test_sorter_signature_matches_tez_tpu():

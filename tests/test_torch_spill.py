@@ -283,11 +283,27 @@ def test_block_merge_matches_tez_tpu(case, engine):
         *sources, key=lambda kv: kv[0]))
 
 
-def test_block_merge_refuses_a_key_normalizer():
-    with pytest.raises(NotImplementedError):
-        list(tblock.iter_merged_blocks([iter([])], 16,
-                                       key_normalizer=bytes.upper,
-                                       device="cpu"))
+@pytest.mark.parametrize("engine", ["host", "device"])
+def test_block_merge_refuses_a_key_normalizer(engine):
+    """The key normalizer is ported (the name is kept): the block merge
+    orders by normalized keys, across blocks, as tez_tpu's does."""
+    assert list(tblock.iter_merged_blocks([iter([])], 16,
+                                          key_normalizer=bytes.upper,
+                                          device="cpu")) == []
+    sources, block = _merge_sources("random")
+    # the same keys in mixed case, sorted by their upper-case form
+    sources = [sorted(((k.upper() if (i + s) % 2 else k, v)
+                       for i, (k, v) in enumerate(src)),
+                      key=lambda kv: kv[0].upper())
+               for s, src in enumerate(sources)]
+    got = _merged(tblock, trf, sources, block, engine=engine,
+                  key_normalizer=bytes.upper, device_min_records=0,
+                  device="cpu")
+    want = _merged(jblock, jrf, sources, block, engine=engine,
+                   key_normalizer=bytes.upper, device_min_records=0)
+    assert got == want
+    assert got[0] == list(__import__("heapq").merge(
+        *sources, key=lambda kv: kv[0].upper()))
 
 
 def _resident_runs(pkg_sorter, rf, pairs_list, **kw):

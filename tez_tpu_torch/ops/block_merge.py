@@ -19,7 +19,9 @@ O(log block) byte compares.
 
 Equal keys across sources emerge in source-list order (pass sources in run
 age order for the reference's MergeQueue arrival-order semantics); within a
-source, producer order is preserved exactly.
+source, producer order is preserved exactly.  With a key normalizer (a
+custom comparator) every comparison is on normalized keys, computed once
+per block.
 """
 from __future__ import annotations
 
@@ -33,44 +35,56 @@ __all__ = ["iter_merged_blocks"]
 
 
 class _Source:
-    """One block-sorted input stream."""
+    """One block-sorted input stream with its sort-key view (the normalized
+    keys when a normalizer is set)."""
 
-    def __init__(self, blocks: Iterator[KVBatch]):
+    def __init__(self, blocks: Iterator[KVBatch],
+                 normalizer: Optional[Callable[[bytes], bytes]]):
         self.blocks = blocks
+        self.normalizer = normalizer
         self.batch: Optional[KVBatch] = None
+        self.sort_bytes: Optional[np.ndarray] = None
+        self.sort_offsets: Optional[np.ndarray] = None
         self.pos = 0
 
     def advance(self) -> bool:
         """Load the next non-empty block; False when exhausted."""
+        from tez_tpu_torch.ops.sorter import _sort_keys
         for batch in self.blocks:
             if batch.num_records == 0:
                 continue
             self.batch = batch
+            self.sort_bytes, self.sort_offsets = _sort_keys(batch,
+                                                            self.normalizer)
             self.pos = 0
             return True
         self.batch = None
         return False
 
+    def sort_key(self, i: int) -> bytes:
+        o = self.sort_offsets
+        return self.sort_bytes[int(o[i]):int(o[i + 1])].tobytes()
+
     def last_key(self) -> bytes:
-        return self.batch.key(self.batch.num_records - 1)
+        return self.sort_key(self.batch.num_records - 1)
 
     def lower_bound(self, key: bytes) -> int:
-        """First row index in [pos, n) whose key is >= `key`."""
+        """First row index in [pos, n) whose sort key is >= `key`."""
         lo, hi = self.pos, self.batch.num_records
         while lo < hi:
             mid = (lo + hi) // 2
-            if self.batch.key(mid) < key:
+            if self.sort_key(mid) < key:
                 lo = mid + 1
             else:
                 hi = mid
         return lo
 
     def upper_bound(self, key: bytes) -> int:
-        """First row index in [pos, n) whose key exceeds `key`."""
+        """First row index in [pos, n) whose sort key exceeds `key`."""
         lo, hi = self.pos, self.batch.num_records
         while lo < hi:
             mid = (lo + hi) // 2
-            if self.batch.key(mid) <= key:
+            if self.sort_key(mid) <= key:
                 lo = mid + 1
             else:
                 hi = mid
@@ -90,7 +104,7 @@ class _Source:
         at a time so a hot key never materializes whole."""
         while self.batch is not None:
             if self.pos < self.batch.num_records and \
-                    self.batch.key(self.pos) != key:
+                    self.sort_key(self.pos) != key:
                 return
             piece = self.take_to(self.upper_bound(key))
             if piece is not None:
@@ -112,16 +126,15 @@ def iter_merged_blocks(
         device="cuda") -> Iterator[KVBatch]:
     """Yield globally sorted KVBatch blocks merged from k block-sorted
     sources.  Resident memory is one block per source plus one merge
-    round's output.  `device` runs the device engine's rounds."""
+    round's output.  `device` runs the device engine's rounds;
+    `key_normalizer` orders the records by their normalized keys."""
     from tez_tpu_torch.ops.sorter import (DEVICE_SORT_MIN_RECORDS,
-                                          _not_ported, merge_sorted_runs)
-    if key_normalizer is not None:
-        raise _not_ported("custom key normalization (key_normalizer)")
+                                          merge_sorted_runs)
     if device_min_records is None:
         device_min_records = DEVICE_SORT_MIN_RECORDS
     active: List[_Source] = []
     for it in sources:
-        s = _Source(iter(it))
+        s = _Source(iter(it), key_normalizer)
         if s.advance():
             active.append(s)
     while active:
@@ -149,7 +162,7 @@ def iter_merged_blocks(
         elif slices:
             merged = merge_sorted_runs(
                 slices, 1, key_width, counters=counters, engine=engine,
-                merge_factor=merge_factor,
+                merge_factor=merge_factor, key_normalizer=key_normalizer,
                 device_min_records=device_min_records, device=device)
             yield merged.batch
         # rows == boundary, per source in source order and contiguously

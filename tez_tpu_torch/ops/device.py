@@ -64,6 +64,14 @@ def device_context(dev: torch.device):
     return contextlib.nullcontext()
 
 
+def stream_context(dev: torch.device, stream):
+    """Context that makes `dev` and its CUDA `stream` current; nothing on
+    the CPU."""
+    if dev.type == "cuda":
+        return _device_and_stream(dev, stream)
+    return contextlib.nullcontext()
+
+
 def is_resource_exhausted(exc: BaseException) -> bool:
     """True when a device-attempt failure should take the OOM ladder."""
     if isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)):

@@ -23,8 +23,10 @@ device key columns; flush_run then streams a partition-major block merge
 (ops/block_merge.py) of the spilled and the in-RAM runs into one
 partition-indexed file and returns it as a FileRun.
 
-Not ported yet (a caller that asks for it gets NotImplementedError):
-custom key normalizers.
+With ``key_normalizer`` set (a custom comparator, library/comparators.py),
+records sort by their normalized keys while the hash partition keeps the
+raw bytes; the resident span and merge paths stay off, since their device
+key columns hold raw keys.
 """
 from __future__ import annotations
 
@@ -52,8 +54,10 @@ def _exact_tiebreak(lengths: np.ndarray, partitions: np.ndarray,
                     lanes: np.ndarray, width: int,
                     keyfn: Callable[[int], bytes]) -> Optional[np.ndarray]:
     """Refinement permutation for rows whose sorted (partition, prefix)
-    group holds a key longer than `width`, or None if exact already.  Host
-    cost is proportional to colliding rows only."""
+    group holds a sort key longer than `width`, or None if exact already.
+    `lengths` and `keyfn` describe the sort keys in sorted order (the
+    normalized keys when a normalizer is set).  Host cost is proportional
+    to colliding rows only."""
     if len(lengths) == 0 or lengths.max(initial=0) <= width:
         return None
     clamped = np.minimum(lengths, width + 1)
@@ -79,18 +83,42 @@ def _exact_tiebreak(lengths: np.ndarray, partitions: np.ndarray,
     return perm if changed else None
 
 
-def _sorted_key_view(key_bytes: np.ndarray, key_offsets: np.ndarray,
+def _sorted_key_view(sort_bytes: np.ndarray, sort_offsets: np.ndarray,
                      perm: np.ndarray
                      ) -> Tuple[np.ndarray, Callable[[int], bytes]]:
-    """(lengths, keyfn) over the keys in sorted order."""
-    starts = key_offsets[:-1][perm]
-    lengths = (key_offsets[1:] - key_offsets[:-1])[perm]
+    """(lengths, keyfn) over the sort keys in sorted order."""
+    starts = sort_offsets[:-1][perm]
+    lengths = (sort_offsets[1:] - sort_offsets[:-1])[perm]
 
     def keyfn(i: int) -> bytes:
         s = int(starts[i])
-        return key_bytes[s:s + int(lengths[i])].tobytes()
+        return sort_bytes[s:s + int(lengths[i])].tobytes()
 
     return lengths, keyfn
+
+
+def normalize_batch_keys(batch: KVBatch,
+                         normalizer: Callable[[bytes], bytes]
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """The normalized sort keys of a batch as ragged (bytes, offsets)
+    arrays: one normalizer call a record, paid only when a custom
+    comparator is set."""
+    raw = batch.key_bytes.tobytes()
+    offs = batch.key_offsets.tolist()
+    keys = [normalizer(raw[offs[i]:offs[i + 1]])
+            for i in range(batch.num_records)]
+    offsets = np.zeros(len(keys) + 1, dtype=np.int64)
+    np.cumsum([len(k) for k in keys], out=offsets[1:])
+    return np.frombuffer(b"".join(keys), dtype=np.uint8), offsets
+
+
+def _sort_keys(batch: KVBatch,
+               normalizer: Optional[Callable[[bytes], bytes]]
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(bytes, offsets) of the keys a batch sorts by."""
+    if normalizer is None:
+        return batch.key_bytes, batch.key_offsets
+    return normalize_batch_keys(batch, normalizer)
 
 
 class SpanBuffer:
@@ -183,10 +211,6 @@ def _route_engine(engine: str, n: int, min_records: int,
     return engine
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to tez_tpu_torch yet")
-
-
 def _record_ms(name: str, counters: Optional[TezCounters],
                t0: float) -> None:
     metrics.observe(name, (time.time() - t0) * 1000.0, counters=counters)
@@ -219,8 +243,6 @@ class DeviceSorter:
                  split_min_bytes: int = DEVICE_SPLIT_MIN_BYTES,
                  breaker=None,
                  device="cuda"):
-        if key_normalizer is not None:
-            raise _not_ported("custom key normalization (key_normalizer)")
         self.device = device_ops.resolve_device(device)
         self.num_partitions = num_partitions
         self.key_width = max(4, key_width)
@@ -255,6 +277,9 @@ class DeviceSorter:
         self._breaker = breaker
         #: keep sorted key lanes on the device for downstream merges
         self.resident_keys = resident_keys
+        #: custom comparator as key normalization (library/comparators.py);
+        #: None sorts by the raw key bytes
+        self.key_normalizer = key_normalizer
         #: host-spill compression (reference: tez.runtime.compress on IFile)
         self.spill_codec = spill_codec
         self.span_budget = span_budget_bytes
@@ -492,6 +517,7 @@ class DeviceSorter:
         # identical to the stable sort of the concatenated span
         return merge_sorted_runs(runs, self.num_partitions, self.key_width,
                                  counters=self.counters, engine="device",
+                                 key_normalizer=self.key_normalizer,
                                  device_min_records=self.device_min_records,
                                  device=self.device)
 
@@ -518,8 +544,8 @@ class DeviceSorter:
         custom_parts = payload["custom_parts"]
         engine = self._span_engine(batch)
         if custom_parts is None and self.partitioner == "hash" and \
-                engine != "host" and self.resident_keys and \
-                batch.num_records > 0:
+                engine != "host" and self.key_normalizer is None and \
+                self.resident_keys and batch.num_records > 0:
             klens = batch.key_offsets[1:] - batch.key_offsets[:-1]
             wmax = int(klens.max(initial=1))
             if wmax <= self.key_width:
@@ -562,11 +588,11 @@ class DeviceSorter:
                 streams=self._streams)
             return {"kind": "resident", "batch": staged["batch"],
                     "inflight": inflight, "t0": t0}
-        # generic spans (custom partitioner / host-routed / over-width
-        # keys): the whole synchronous span sort runs here on the staging
-        # thread, still overlapped with other spans' readback, on the
-        # sorter's device and its compute stream (a fresh thread's current
-        # device is the first card)
+        # generic spans (normalizer / custom partitioner / host-routed /
+        # over-width keys): the whole synchronous span sort runs here on
+        # the staging thread, still overlapped with other spans' readback,
+        # on the sorter's device and its compute stream (a fresh thread's
+        # current device is the first card)
         with self._streams.on(self._streams.compute):
             run = self.sort_batch(staged["batch"],
                                   custom_partitions=staged["custom_parts"])
@@ -678,8 +704,8 @@ class DeviceSorter:
         klens = batch.key_offsets[1:] - batch.key_offsets[:-1]
         wmax = int(klens.max(initial=1))
         if custom_partitions is None and self.partitioner == "hash" and \
-                engine != "host" and self.resident_keys and \
-                wmax <= self.key_width:
+                engine != "host" and self.key_normalizer is None and \
+                self.resident_keys and wmax <= self.key_width:
             # resident fast path: lanes sized to the actual max key length,
             # the full keys fit them, so the hash derives from the lanes on
             # the device, prefix order IS byte order (no tie-break), and the
@@ -697,8 +723,8 @@ class DeviceSorter:
             self._record_sort_ms(t0)
             return Run.from_sorted_batch(sorted_batch, sorted_partitions,
                                          self.num_partitions)
-        mat, lengths = pad_to_matrix(batch.key_bytes, batch.key_offsets,
-                                     self.key_width)
+        sort_bytes, sort_offsets = _sort_keys(batch, self.key_normalizer)
+        mat, lengths = pad_to_matrix(sort_bytes, sort_offsets, self.key_width)
         lanes = matrix_to_lanes(mat)
         from tez_tpu_torch.ops.host_sort import (host_hash_partition,
                                                  host_sort_run)
@@ -730,8 +756,7 @@ class DeviceSorter:
         if engine != "host":
             _record_ms("device.span", self.counters, t_dev)
         sorted_batch = batch.take(perm)
-        sort_lengths, keyfn = _sorted_key_view(batch.key_bytes,
-                                               batch.key_offsets, perm)
+        sort_lengths, keyfn = _sorted_key_view(sort_bytes, sort_offsets, perm)
         refinement = _exact_tiebreak(
             sort_lengths, sorted_partitions, lanes[perm], self.key_width,
             keyfn)
@@ -842,6 +867,7 @@ class DeviceSorter:
             runs, self.num_partitions, self.key_width,
             counters=self.counters, engine=self.engine,
             merge_factor=self.merge_factor,
+            key_normalizer=self.key_normalizer,
             device_min_records=self.device_min_records, device=self.device)
         if self.combiner is not None:
             merged = self.combiner(merged)
@@ -876,6 +902,7 @@ class DeviceSorter:
                                 else iter([s.partition(p)]))
                 for block in iter_merged_blocks(
                         srcs, self.key_width, engine=self.engine,
+                        key_normalizer=self.key_normalizer,
                         merge_factor=self.merge_factor,
                         device_min_records=self.device_min_records,
                         device=self.device):
@@ -965,9 +992,9 @@ def merge_sorted_runs(runs: Sequence[Run], num_partitions: int,
     (per-partition slices ranked in place); the rest take the generic
     merge-path merge over freshly encoded lanes with the partition as the
     leading lane, then the host tie-break for keys wider than key_width.
+    With key_normalizer set the runs are sorted by normalized keys, which
+    the generic merge encodes (the device key columns hold raw keys).
     merge_factor > 1 bounds how many runs merge per pass (io.sort.factor)."""
-    if key_normalizer is not None:
-        raise _not_ported("custom key normalization (key_normalizer)")
     dev = device_ops.resolve_device(device)
     engine = resolve_engine(engine)
     if merge_factor > 1 and len(runs) > merge_factor:
@@ -980,12 +1007,13 @@ def merge_sorted_runs(runs: Sequence[Run], num_partitions: int,
                 nxt.append(chunk[0] if len(chunk) == 1 else
                            merge_sorted_runs(
                                chunk, num_partitions, key_width, None,
-                               engine, device_min_records=device_min_records,
+                               engine, key_normalizer=key_normalizer,
+                               device_min_records=device_min_records,
                                device=dev))
             level = nxt
         runs = level
     t0 = time.time()
-    if engine != "host":
+    if engine != "host" and key_normalizer is None:
         live = [r for r in runs if r.batch.num_records > 0]
         if live and all(r.batch.dev_keys is not None for r in live):
             # resident merge: mixed lane widths widen with zero lanes
@@ -1011,8 +1039,8 @@ def merge_sorted_runs(runs: Sequence[Run], num_partitions: int,
         np.repeat(np.arange(r.num_partitions, dtype=np.int32),
                   np.diff(r.row_index)) for r in runs]) \
         if runs else np.zeros(0, np.int32)
-    mat, lengths = pad_to_matrix(batch.key_bytes, batch.key_offsets,
-                                 key_width)
+    sort_bytes, sort_offsets = _sort_keys(batch, key_normalizer)
+    mat, lengths = pad_to_matrix(sort_bytes, sort_offsets, key_width)
     lanes = matrix_to_lanes(mat)
     if engine == "host":
         from tez_tpu_torch.ops.host_sort import host_sort_run
@@ -1030,8 +1058,7 @@ def merge_sorted_runs(runs: Sequence[Run], num_partitions: int,
         _record_ms("device.merge", counters, t_dev)
         sorted_partitions = partitions[perm]
     sorted_batch = batch.take(perm)
-    sort_lengths, keyfn = _sorted_key_view(batch.key_bytes,
-                                           batch.key_offsets, perm)
+    sort_lengths, keyfn = _sorted_key_view(sort_bytes, sort_offsets, perm)
     refinement = _exact_tiebreak(sort_lengths, sorted_partitions,
                                  lanes[perm], key_width, keyfn)
     if refinement is not None:

@@ -74,13 +74,25 @@ Phases, each checked, none allowed to fail:
    partition of every record the FNV of its raw bytes, the merged
    records in normalized order); E, B's input under the merge lane's
    faults (an out-of-memory split, a hang against a 500 ms watchdog, a
-   tripped breaker), each byte-identical to B.
+   tripped breaker), each byte-identical to B;
+10. map and reduce tasks: 4 map and 4 reduce TaskRunners in one process,
+   each wave concurrent, over one scatter-gather edge at tez_tpu's library
+   defaults (io.sort.mb 256, key width 16, engine auto, pipeline depth 2,
+   a 230.4 MiB merge budget, spill directories under $TMPDIR), the
+   harness's in-process umbilical routing the maps' events with the
+   port's ScatterGatherEdgeManager: each map writes 256 MiB of phase 8's
+   words (value the long 1) through write_batch, each reducer sums its
+   groups through grouped_blocks; leg A without a combiner, B with the
+   sum combiner, C pipelined; every reducer's output equal to a numpy
+   Counter golden in strictly increasing key order, B's and C's equal to
+   A's, every task SUCCEEDED without a failover, and the counters
+   consistent with the records and the partitions.
 
-Kernel launch counts are zeroed before each path of phases 3-6, 8 and 9
+Kernel launch counts are zeroed before each path of phases 3-6 and 8-10
 and read after it: each TPU kernel's counterpart on the path must have
 been launched, and the general-query merge rank, which the main path no
 longer calls, not at all; the JSON line reports their sum over phases
-3-6, 8 and 9.  The
+3-6 and 8-10.  The
 last two lines are one JSON object of per-kernel numbers and {"ok": true,
 "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -1456,7 +1468,9 @@ class MergeProbe:
     engine and records (the sorter module's routing decision), the device
     part of the device merges (merge_path_runs: upload, kernels,
     readback), and the bytes the manager reads back from disk (its
-    chunked runs whole, a disk-direct source's partition)."""
+    chunked runs whole, a disk-direct source's partition).  A pass is a
+    merge_sorted_runs call: the sorters' span sorts, routed alike, are
+    not counted."""
 
     def __init__(self):
         import threading
@@ -1479,6 +1493,8 @@ class MergeProbe:
 
         def routing(engine, n, *a, **kw):
             out = route(engine, n, *a, **kw)
+            if sys._getframe(1).f_code.co_name != "merge_sorted_runs":
+                return out
             with self.lock:
                 self.rounds[out] += 1
                 self.rounds[out + "_records"] += n
@@ -2069,6 +2085,510 @@ def merge_phase(args, device="cuda", **sizes) -> dict:
     return dict(totals)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: map and reduce tasks through the task runtime and the ordered
+# shuffle IO
+# ---------------------------------------------------------------------------
+#: the edge's vertices: task attempt ids carry the vertex's index
+MAP_VERTEX, REDUCE_VERTEX = 0, 1
+#: tez_tpu's library defaults for one ordered shuffle edge
+#: (tez_tpu/library/outputs.py, inputs.py): io.sort.mb 256, key width 16,
+#: the engine `auto`, pipeline depth 2; words as bytes, counts as longs
+TASK_CONF = {"tez.runtime.io.sort.mb": 256,
+             "tez.runtime.tpu.key.width.bytes": 16,
+             "tez.runtime.sorter.class": "auto",
+             "tez.runtime.sort.pipeline.depth": 2,
+             "tez.runtime.key.class": "bytes",
+             "tez.runtime.value.class": "long"}
+#: phase 10's legs: A no combiner, B the sum combiner, C pipelined shuffle
+TASK_LEGS = {"A": {},
+             "B": {"tez.runtime.combiner.class": "sum_long"},
+             "C": {"tez.runtime.pipelined-shuffle.enabled": True}}
+#: phase 10's size: 4 maps x 4 reducers, each map 256 MiB of keys and
+#: values (so each reducer's ~256 MiB passes its 230.4 MiB merge budget)
+TASK_SIZES = dict(maps=4, reducers=4, map_mb=256, vocab_size=SPILL_VOCAB,
+                  conf={})
+#: a size the plain versions run in seconds: at io.sort.mb 4 each map's 4
+#: MiB takes two spans of over 65,536 records (the device floor) and each
+#: reducer's ~4 MiB passes its 3.6 MiB merge budget
+TINY_TASKS = dict(maps=4, reducers=4, map_mb=4, vocab_size=20_000,
+                  conf={"tez.runtime.io.sort.mb": 4})
+
+
+def task_api(root: str = "tez_tpu_torch", device=None):
+    """The task-level API of a package as one namespace: the port's, or
+    (root="tez_tpu") the reference's, which the parity tests drive through
+    the same harness.  device is the port's runner device (tez_tpu's runner
+    takes none)."""
+    import importlib
+    import types
+
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
+    spec, rf = mod("runtime.task_spec"), mod("ops.runformat")
+    return types.SimpleNamespace(
+        root=root, TaskRunner=mod("runtime.task_runner").TaskRunner,
+        TaskSpec=spec.TaskSpec, InputSpec=spec.InputSpec,
+        OutputSpec=spec.OutputSpec, ids=mod("common.ids"),
+        payload=mod("common.payload"), events=mod("api.events"),
+        HeartbeatResponse=mod("am.task_comm").HeartbeatResponse,
+        ScatterGatherEdgeManager=mod("am.edge").ScatterGatherEdgeManager,
+        EdgeManagerPluginContext=mod(
+            "api.edge_manager").EdgeManagerPluginContext,
+        ObjectRegistry=mod("api.runtime").ObjectRegistry,
+        KVBatch=rf.KVBatch, TaskCounter=mod("common.counters").TaskCounter,
+        service=mod("shuffle.service").local_shuffle_service(),
+        runner_kw={} if device is None else {"device": device})
+
+
+class LocalUmbilical:
+    """The AM's side of the umbilical for one scatter-gather edge from
+    vertex "map" to vertex "reduce", in the process.  It keeps each map
+    attempt's events and, once the map wave is released, routes its
+    CompositeDataMovementEvents through the package's
+    ScatterGatherEdgeManager to each reducer's heartbeats as
+    CompositeRoutedDataMovementEvents, as tez_tpu's EdgeImpl does
+    (tez_tpu/am/edge.py get_events_for_task): map by map in task order,
+    each map's events in the order it sent them.  `rewrite(dest, events)`
+    may change what one delivery carries (a test's injected events)."""
+
+    def __init__(self, api, num_maps: int, num_reducers: int,
+                 rewrite=None):
+        import threading
+
+        class _EdgeContext(api.EdgeManagerPluginContext):
+            source_vertex_name = "map"
+            destination_vertex_name = "reduce"
+            source_vertex_num_tasks = num_maps
+            destination_vertex_num_tasks = num_reducers
+            user_payload = api.payload.UserPayload()
+
+        self.api, self.rewrite = api, rewrite
+        self.edge = api.ScatterGatherEdgeManager(_EdgeContext())
+        self.edge.initialize()
+        self.lock = threading.Lock()
+        self.log = []          # (map task, attempt number, event)
+        self.vm_payloads = []  # (map task, VertexManagerEvent payload)
+        self.routed = {}       # reducer -> log entries routed to it
+        self.released = False
+        #: per attempt (str): "SUCCEEDED" | "FAILED" | "KILLED", and the
+        #: diagnostics, fatal flag and counters it reported
+        self.states, self.diagnostics, self.counters = {}, {}, {}
+        self.fatal = {}
+
+    def _collect(self, attempt_id, tez_events) -> None:
+        src = attempt_id.task_id.id
+        with self.lock:
+            for te in tez_events:
+                ev = te.event
+                if isinstance(ev, self.api.events.VertexManagerEvent):
+                    self.vm_payloads.append((src, ev.user_payload))
+                else:
+                    self.log.append((src, attempt_id.id, ev))
+
+    def release(self) -> None:
+        """The map wave is done: route its events from now on."""
+        with self.lock:
+            self.log.sort(key=lambda entry: entry[0])
+            self.released = True
+
+    def _route(self, dest: int) -> list:
+        ev = self.api.events
+        out = []
+        with self.lock:
+            if not self.released:
+                return out
+            for src, version, e in self.log[self.routed.get(dest, 0):]:
+                if not isinstance(e, ev.CompositeDataMovementEvent):
+                    continue
+                meta = self.edge.\
+                    route_composite_data_movement_event_to_destination(
+                        src, dest)
+                if meta is not None:
+                    out.append(ev.CompositeRoutedDataMovementEvent(
+                        source_index=meta.source,
+                        target_index_start=meta.target, count=meta.count,
+                        user_payload=e.user_payload, version=version))
+            self.routed[dest] = len(self.log)
+        if out and self.rewrite is not None:
+            out = self.rewrite(dest, out)
+        return out
+
+    def heartbeat(self, req):
+        aid = req.attempt_id
+        if aid.task_id.vertex_id.id == MAP_VERTEX:
+            self._collect(aid, req.events)
+            return self.api.HeartbeatResponse([])
+        return self.api.HeartbeatResponse(
+            [("map", e) for e in self._route(aid.task_id.id)])
+
+    def task_done(self, attempt_id, events, counters, **_stamps) -> None:
+        if attempt_id.task_id.vertex_id.id == MAP_VERTEX:
+            self._collect(attempt_id, events)
+        with self.lock:
+            self.states[str(attempt_id)] = "SUCCEEDED"
+            self.counters[str(attempt_id)] = counters
+
+    def task_failed(self, attempt_id, diagnostics, fatal=False,
+                    counters=None) -> None:
+        with self.lock:
+            self.states[str(attempt_id)] = "FAILED"
+            self.diagnostics[str(attempt_id)] = diagnostics
+            self.fatal[str(attempt_id)] = fatal
+            self.counters[str(attempt_id)] = counters
+
+    def task_killed(self, attempt_id, diagnostics) -> None:
+        with self.lock:
+            self.states[str(attempt_id)] = "KILLED"
+            self.diagnostics[str(attempt_id)] = diagnostics
+
+    def can_commit(self, *_a, **_kw) -> bool:
+        return True
+
+
+class EdgeMapProcessor:
+    """Map task of the edge harness: writes the records in its object
+    registry ("records") to its one output, batch by batch through
+    write_batch, or pair by pair through write when its payload says
+    {"mode": "records"} (each pair a logical key and value)."""
+
+    def __init__(self, context):
+        self.context = context
+
+    def initialize(self) -> None:
+        pass
+
+    def handle_events(self, events) -> None:
+        pass
+
+    def run(self, inputs, outputs) -> None:
+        payload = self.context.user_payload.load() or {}
+        writer = outputs["reduce"].get_writer()
+        records = self.context.object_registry.get("records")
+        if payload.get("mode") == "records":
+            for key, value in records:
+                writer.write(key, value)
+        else:
+            for batch in records:
+                writer.write_batch(batch)
+
+    def close(self) -> None:
+        pass
+
+
+class EdgeReduceProcessor:
+    """Reduce task of the edge harness; what it reads into its object
+    registry ("result") depends on its payload's mode:
+    "sum" (the default): OrderedWordCount's SumProcessor through
+    grouped_blocks, each group's key and the sum of its long values, as
+    (key bytes, key lengths, sums); "blocks": every (block, group starts)
+    of grouped_blocks as arrays; "groups": the (key, [values]) pairs of
+    the reader's __iter__."""
+
+    def __init__(self, context):
+        self.context = context
+
+    def initialize(self) -> None:
+        pass
+
+    def handle_events(self, events) -> None:
+        pass
+
+    def run(self, inputs, outputs) -> None:
+        mode = (self.context.user_payload.load() or {}).get("mode", "sum")
+        reader = inputs["map"].get_reader()
+        if mode == "groups":
+            result = [(k, list(vs)) for k, vs in reader]
+        elif mode == "blocks":
+            result = [(b.key_bytes.copy(), b.key_offsets.copy(),
+                       b.val_bytes.copy(), b.val_offsets.copy(),
+                       np.asarray(s).copy())
+                      for b, s in reader.grouped_blocks()]
+        else:
+            from tez_tpu_torch.ops.serde import decode_longs_be
+            keys, lens, sums = [], [], []
+            for b, starts in reader.grouped_blocks():
+                if b.num_records == 0:
+                    continue
+                firsts = b.take(starts)
+                keys.append(firsts.key_bytes)
+                lens.append(np.diff(firsts.key_offsets))
+                sums.append(np.add.reduceat(
+                    decode_longs_be(b.val_bytes, b.num_records), starts))
+            cat = (lambda xs, dt: np.concatenate(xs) if xs
+                   else np.zeros(0, dt))
+            result = (cat(keys, np.uint8), cat(lens, np.int64),
+                      cat(sums, np.int64))
+        self.context.object_registry.add("session", "result", result)
+
+    def close(self) -> None:
+        pass
+
+
+class EdgeRun:
+    """One run of the edge: the umbilical, each wave's runners (with their
+    object registries) and states, and the waves' wall seconds."""
+
+    def __init__(self, umbilical, maps, reducers, map_wall, reduce_wall):
+        self.umbilical, self.maps, self.reducers = umbilical, maps, reducers
+        self.map_wall, self.reduce_wall = map_wall, reduce_wall
+
+    def results(self) -> list:
+        return [reg.get("result") for _r, reg, _s in self.reducers]
+
+    def counters(self, wave: str) -> list:
+        return [r.counters for r, _reg, _s in getattr(self, wave)]
+
+
+def run_edge(api, conf: dict, map_records: list, num_reducers: int,
+             work_root: str, map_payload=None, reduce_payload=None,
+             processors=("chip_smoke:EdgeMapProcessor",
+                         "chip_smoke:EdgeReduceProcessor"),
+             concurrent: bool = True, rewrite=None,
+             on_maps_done=None) -> EdgeRun:
+    """Runs one scatter-gather edge through a package's TaskRunner: a map
+    task per entry of map_records (what its processor writes), then, once
+    every map succeeded, num_reducers reduce tasks, each wave concurrently
+    (or task by task).  Each task gets a work directory of its own under
+    work_root (its spill directory).  on_maps_done(umbilical) runs between
+    the waves.  Returns the EdgeRun; the shuffle service's registrations
+    of the run are dropped after it."""
+    import threading
+    ids, pl = api.ids, api.payload
+    dag = ids.DAGId("app_1700000000_0001", 1)
+    umb = LocalUmbilical(api, len(map_records), num_reducers,
+                         rewrite=rewrite)
+    out_cls = f"{api.root}.library.outputs:OrderedPartitionedKVOutput"
+    in_cls = f"{api.root}.library.inputs:OrderedGroupedKVInput"
+
+    def runner(vertex, name, task, parallelism, processor, payload, ins,
+               outs, registry):
+        spec = api.TaskSpec(
+            attempt_id=dag.vertex(vertex).task(task).attempt(0),
+            dag_name="edge", vertex_name=name,
+            vertex_parallelism=parallelism,
+            processor_descriptor=pl.ProcessorDescriptor.create(processor,
+                                                               payload),
+            inputs=ins, outputs=outs, conf=dict(conf))
+        work_dir = os.path.join(work_root, f"{name}_{task}")
+        os.makedirs(work_dir, exist_ok=True)
+        return api.TaskRunner(spec, umb, registry=registry,
+                              work_dir=work_dir, **api.runner_kw)
+
+    def wave(runners) -> float:
+        states = [None] * len(runners)
+
+        def one(i):
+            states[i] = runners[i][0].run()
+        t0 = time.perf_counter()
+        if concurrent:
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(runners))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        else:
+            for i in range(len(runners)):
+                one(i)
+        wall = time.perf_counter() - t0
+        for i, (r, reg, _s) in enumerate(runners):
+            runners[i] = (r, reg, states[i])
+        return wall
+
+    out_spec = api.OutputSpec("reduce", pl.OutputDescriptor.create(out_cls),
+                              num_reducers)
+    in_spec = api.InputSpec("map", pl.InputDescriptor.create(in_cls),
+                            len(map_records))
+    maps = []
+    for m, records in enumerate(map_records):
+        reg = api.ObjectRegistry()
+        reg.add(reg.SESSION, "records", records)
+        maps.append((runner(MAP_VERTEX, "map", m, len(map_records),
+                            processors[0], map_payload, (), (out_spec,),
+                            reg), reg, None))
+    try:
+        map_wall = wave(maps)
+        reducers, reduce_wall = [], 0.0
+        if all(s == "SUCCEEDED" for _r, _g, s in maps):
+            umb.release()
+            if on_maps_done is not None:
+                on_maps_done(umb)
+            for d in range(num_reducers):
+                reg = api.ObjectRegistry()
+                reducers.append((runner(REDUCE_VERTEX, "reduce", d,
+                                        num_reducers, processors[1],
+                                        reduce_payload, (in_spec,), (),
+                                        reg), reg, None))
+            reduce_wall = wave(reducers)
+    finally:
+        api.service.unregister_prefix(str(dag))
+    return EdgeRun(umb, maps, reducers, map_wall, reduce_wall)
+
+
+def task_batches(rng, mat, lens, kv_bytes: int) -> tuple:
+    """Batches of Zipf(1.3) words with the value 1 (8 bytes), until they
+    hold kv_bytes of keys and values.  Returns (batches, word ids)."""
+    chunk = max(1 << 20, min(64 << 20, kv_bytes // 4))
+    batches, ids, kv = [], [], 0
+    while kv < kv_bytes:
+        batch, bids = word_batch(rng, mat, lens, chunk)
+        batches.append(batch)
+        ids.append(bids)
+        kv += int(batch.key_offsets[-1]) + 8 * batch.num_records
+    return batches, np.concatenate(ids)
+
+
+def strictly_increasing(kb: np.ndarray, klen: np.ndarray) -> bool:
+    """Keys (1-16 bytes, no zero byte) in strictly increasing byte order."""
+    if len(klen) < 2:
+        return True
+    ko = np.zeros(len(klen) + 1, dtype=np.int64)
+    np.cumsum(klen, out=ko[1:])
+    lanes = be_lanes(key_matrix(kb, ko)[0]).astype(np.uint64)
+    hi = (lanes[:, 0] << np.uint64(32)) | lanes[:, 1]
+    lo = (lanes[:, 2] << np.uint64(32)) | lanes[:, 3]
+    a, b = slice(None, -1), slice(1, None)
+    up = (hi[b] > hi[a]) | ((hi[b] == hi[a]) & (
+        (lo[b] > lo[a]) | ((lo[b] == lo[a]) & (klen[b] > klen[a]))))
+    return bool(up.all())
+
+
+def task_goldens(mat, lens, ids, reducers: int) -> list:
+    """Each reducer's expected output: the words of its partition (FNV-1a
+    of the word mod reducers) that occur, in byte order, with their
+    counts, as (key bytes, key lengths, counts)."""
+    counts = np.bincount(ids, minlength=len(mat))
+    part = (fnv_np(mat, lens) % np.uint64(reducers)).astype(np.int64)
+    rank = key_rank(mat, lens)
+    out = []
+    for r in range(reducers):
+        vs = np.flatnonzero((counts > 0) & (part == r))
+        vs = vs[np.argsort(rank[vs])]
+        kb, _ko = ragged_keys(mat[vs], lens[vs])
+        out.append((kb, lens[vs], counts[vs]))
+    return out
+
+
+def check_edge(label: str, api, run: EdgeRun, goldens: list,
+               records_per_map: list) -> None:
+    """Phase 10's gates on one leg: every task SUCCEEDED without a
+    failover, each reducer's output its golden, strictly increasing, and
+    the counters consistent with the records and the partitions."""
+    from tez_tpu_torch.ops.async_stage import (COUNTER_GROUP,
+                                               process_breaker)
+    TC = api.TaskCounter
+    umb = run.umbilical
+    states = dict(umb.states)
+    check(len(states) == len(run.maps) + len(run.reducers) and
+          set(states.values()) == {"SUCCEEDED"},
+          f"{label}: task states {states} {umb.diagnostics}")
+    for c in run.counters("maps") + run.counters("reducers"):
+        moved = {k: v for k, v in c.to_dict().get(COUNTER_GROUP, {}).items()
+                 if v}
+        check(not moved, f"{label}: DeviceFailover counters moved {moved}")
+    br = process_breaker()
+    check(br.state == "closed" and br.trips == 0,
+          f"{label}: breaker {br.state}, {br.trips} trips")
+    for m, c in enumerate(run.counters("maps")):
+        got = c.find_counter(TC.OUTPUT_RECORDS).value
+        check(got == records_per_map[m],
+              f"{label}: map {m} OUTPUT_RECORDS {got} != "
+              f"{records_per_map[m]}")
+    for r, ((kb, kl, sums), (gk, gl, gs), c) in enumerate(zip(
+            run.results(), goldens, run.counters("reducers"))):
+        check(np.array_equal(kl, gl) and np.array_equal(kb, gk) and
+              np.array_equal(sums, gs),
+              f"{label}: reducer {r} differs from the golden "
+              f"({len(kl)} groups against {len(gl)})")
+        check(strictly_increasing(kb, kl),
+              f"{label}: reducer {r} keys not strictly increasing")
+        groups = c.find_counter(TC.REDUCE_INPUT_GROUPS).value
+        check(groups == len(gl), f"{label}: reducer {r} "
+                                 f"REDUCE_INPUT_GROUPS {groups} != "
+                                 f"{len(gl)}")
+
+
+def task_phase(args, device="cuda", **sizes) -> dict:
+    """Phase 10; returns the kernel launches of its legs."""
+    import torch
+    from tez_tpu_torch.common.counters import TaskCounter as TC
+    from tez_tpu_torch.ops import async_stage
+    sz = dict(TASK_SIZES, **sizes)
+    api = task_api(device=device)
+    rng = np.random.default_rng(args.seed + 10)
+    t0 = time.perf_counter()
+    mat, lens = bulk_word_vocab(rng, sz["vocab_size"])
+    maps = [task_batches(rng, mat, lens, int(sz["map_mb"] * (1 << 20)))
+            for _ in range(sz["maps"])]
+    ids = np.concatenate([i for _b, i in maps])
+    goldens = task_goldens(mat, lens, ids, sz["reducers"])
+    kv = sum(int(b.key_offsets[-1]) + 8 * b.num_records
+             for bs, _i in maps for b in bs)
+    log(f"tasks: {sz['maps']} maps x {sz['reducers']} reducers, "
+        f"{len(ids)} records, {kv} bytes of KV, data and goldens in "
+        f"{time.perf_counter() - t0:.3f} s")
+    totals: collections.Counter = collections.Counter()
+    digests = {}
+    async_stage.reset_process_breaker()
+    with tempfile.TemporaryDirectory(prefix="tez_tasks_") as root:
+        for leg, extra in TASK_LEGS.items():
+            conf = dict(TASK_CONF, **sz["conf"], **extra)
+            label = f"tasks {leg}"
+            if is_cuda(device):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            with Launches(label, totals) as launches, \
+                    MergeProbe() as probe:
+                t0 = time.perf_counter()
+                run = run_edge(api, conf, [bs for bs, _i in maps],
+                               sz["reducers"], os.path.join(root, leg))
+                sync(device)
+                wall = time.perf_counter() - t0
+            check_edge(label, api, run, goldens,
+                       [len(i) for _b, i in maps])
+            mc, rc = run.counters("maps"), run.counters("reducers")
+
+            def total(cs, c):
+                return sum(x.find_counter(c).value for x in cs)
+            if leg == "A":
+                parts = sum(sum(p["partition_sizes"])
+                            for _m, p in run.umbilical.vm_payloads)
+                got = total(rc, TC.SHUFFLE_BYTES)
+                check(got == parts, f"{label}: SHUFFLE_BYTES {got} != the "
+                                    f"maps' partition bytes {parts}")
+            digests[leg] = [tuple(a.tobytes() for a in res)
+                            for res in run.results()]
+            written = total(mc + rc, TC.ADDITIONAL_SPILLS_BYTES_WRITTEN)
+            read = total(mc, TC.ADDITIONAL_SPILLS_BYTES_READ) + \
+                probe.read_bytes
+            peak = torch.cuda.max_memory_allocated() / 2**30 \
+                if is_cuda(device) else float("nan")
+            per = [(c.find_counter(TC.SHUFFLE_PHASE_TIME).value,
+                    c.find_counter(TC.MERGE_PHASE_TIME).value) for c in rc]
+            log(f"phase {label}: wall_s={wall:.3f} "
+                f"map_wave_s={run.map_wall:.3f} "
+                f"reduce_wave_s={run.reduce_wall:.3f} MB={kv / 1e6:.1f} "
+                f"MB_per_s={kv / 1e6 / wall:.1f}")
+            log(f"{label}: SHUFFLE_PHASE_TIME / MERGE_PHASE_TIME ms by "
+                f"reducer {per}; merge passes on the card "
+                f"{probe.rounds['device']} "
+                f"({probe.rounds['device_records']} records), on the host "
+                f"{probe.rounds['host']} ({probe.rounds['host_records']} "
+                f"records); merge_path_runs count={probe.device_calls} "
+                f"sum_ms={probe.device_s * 1e3:.3f}; disk bytes written "
+                f"{written} read {read}; peak device memory {peak:.3f} GiB; "
+                f"shuffle bytes {total(rc, TC.SHUFFLE_BYTES)} (disk-direct "
+                f"{total(rc, TC.SHUFFLE_BYTES_DISK_DIRECT)}); mem-to-disk "
+                f"merges {total(rc, TC.NUM_MEM_TO_DISK_MERGES)}")
+            launches.require(device, "fnv_hash_lanes", "merge_path_pair")
+    for leg in ("B", "C"):
+        check(digests[leg] == digests["A"],
+              f"tasks {leg}: reducer output differs from leg A's")
+    log("tasks: legs A-C passed")
+    return dict(totals)
+
+
 class SettableClock:
     """A clock that stands still until advanced: the breaker's cooldown
     in phase 7 elapses when the script says so, not by wall time."""
@@ -2153,21 +2673,27 @@ def main(argv=None) -> int:
     merge_launches = merge_phase(args)
     log(f"merge: {time.perf_counter() - t0:.3f} s, launches "
         f"{json.dumps(merge_launches)}")
+    t0 = time.perf_counter()
+    log(f"task phase on {card}")
+    task_launches = task_phase(args)
+    log(f"tasks: {time.perf_counter() - t0:.3f} s, launches "
+        f"{json.dumps(task_launches)}")
     launches = collections.Counter(launches)
     launches.update(spill_launches)
     launches.update(merge_launches)
+    launches.update(task_launches)
     for kname, row in rows.items():
         row["launches"] = launches[kname]
     for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:
         for kname in names:
             log(f"launch check: {tpu_kernel} ({where}) -> {kname}: "
                 f"{launches[kname]} launches on the slice, the spill "
-                f"path and the merge legs")
+                f"path, the merge legs and the tasks")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
         f"counterpart, held in phase 2): {launches['merge_rank']} launches "
-        f"on the slice, the spill path and the merge legs")
+        f"on the slice, the spill path, the merge legs and the tasks")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

@@ -1062,3 +1062,123 @@ def test_merge_manager_fetch_race_probe(cuda, tmp_path):
             "NUM_MEM_TO_DISK_MERGES"] >= 2
         mm.cleanup()
         torch.cuda.synchronize()
+
+
+# -- tasks: the runtime and the ordered shuffle IO on the card ---------------
+def _edge_batches(seed, maps, n, vocab=2000):
+    """Each map's records: n Zipf words of 1-16 letters, each value 1, in
+    batches of 50,000."""
+    import chip_smoke
+    rng = np.random.default_rng(seed)
+    mat, lens = chip_smoke.bulk_word_vocab(rng, vocab)
+    out = []
+    for _m in range(maps):
+        ids = rng.zipf(1.3, n) % vocab
+        batches = []
+        for s in range(0, n, 50_000):
+            part = ids[s:s + 50_000]
+            kb, ko = chip_smoke.ragged_keys(mat[part], lens[part])
+            batches.append(KVBatch(kb, ko, np.tile(chip_smoke.ONE_LONG,
+                                                   len(part)),
+                                   np.arange(len(part) + 1,
+                                             dtype=np.int64) * 8))
+        out.append(batches)
+    return out
+
+
+def _untimed(counters):
+    skip = ("MILLI", "_TIME", "MEMORY", "HEAP")
+    return {g: {c: v for c, v in cs.items() if not any(s in c for s in skip)}
+            for g, cs in counters.to_dict().items()
+            if not g.startswith("LatencyHistogram")}
+
+
+#: io.sort.mb 8: two spans a map and each reducer over its 7.2 MiB merge
+#: budget, every span and merge on the device engine
+_TASK_CONF = {"tez.runtime.io.sort.mb": 8,
+              "tez.runtime.tpu.device.sort.min.records": 0}
+
+
+def test_task_edge_matches_host(cuda, tmp_path, monkeypatch):
+    """A 2 x 2 edge of TaskRunners on the card and on the host (the
+    kernels' plain versions), one readback worker and paced commits: the
+    events, every counter but the times, and the reducers' grouped
+    streams are equal, and the card run launched the kernels."""
+    import chip_smoke
+    from tez_tpu_torch.library import merge_manager as mm
+    from tez_tpu_torch.ops import async_stage
+    real_init = async_stage.AsyncSpanPipeline.__init__
+    monkeypatch.setattr(async_stage.AsyncSpanPipeline, "__init__",
+                        lambda self, *a, **kw: real_init(
+                            self, *a, **dict(kw, readback_workers=1)))
+    real_commit = mm.ShuffleMergeManager.commit
+
+    def paced(self, *a, **kw):
+        out = real_commit(self, *a, **kw)
+        assert self.quiesce(timeout=600)
+        return out
+    monkeypatch.setattr(mm.ShuffleMergeManager, "commit", paced)
+    conf = dict(chip_smoke.TASK_CONF, **_TASK_CONF)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        api = chip_smoke.task_api(device=dev)
+        kernels.reset_launches()
+        run = chip_smoke.run_edge(api, conf, _edge_batches(51, 2, 400_000),
+                                  2, str(tmp_path / dev),
+                                  reduce_payload={"mode": "blocks"},
+                                  concurrent=False)
+        assert set(run.umbilical.states.values()) == {"SUCCEEDED"}, \
+            run.umbilical.diagnostics
+        launches = dict(kernels.launches)
+        runs[dev] = (
+            [(s, v, e.user_payload) for s, v, e in run.umbilical.log],
+            run.umbilical.vm_payloads,
+            [_untimed(c) for c in run.counters("maps") +
+             run.counters("reducers")],
+            [[tuple(a.tobytes() for a in blk) for blk in res]
+             for res in run.results()])
+        if dev == "cuda":
+            assert launches["fnv_hash_lanes"] > 0
+            assert launches["merge_path_pair"] > 0
+            assert launches["merge_rank"] == 0
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert a == b
+
+
+def test_task_reducers_on_the_card_are_deterministic(cuda, tmp_path):
+    """4 maps and 4 concurrent reducers on the card, five times, with the
+    library's two readback workers and free-running commits: the
+    reducers' outputs are the same bytes every time."""
+    import chip_smoke
+    api = chip_smoke.task_api(device="cuda")
+    conf = dict(chip_smoke.TASK_CONF, **_TASK_CONF)
+    data = _edge_batches(52, 4, 300_000)
+    outs = []
+    for rep in range(5):
+        run = chip_smoke.run_edge(api, conf, data, 4,
+                                  str(tmp_path / f"r{rep}"))
+        assert set(run.umbilical.states.values()) == {"SUCCEEDED"}, \
+            run.umbilical.diagnostics
+        outs.append([tuple(a.tobytes() for a in res)
+                     for res in run.results()])
+    assert all(o == outs[0] for o in outs[1:])
+
+
+def test_task_runner_defaults_to_the_card(cuda, tmp_path):
+    """A TaskRunner built without a device runs its task on the card: the
+    contexts, the output's sorter and the input's merge manager hold the
+    CUDA device, and the kernels launched."""
+    import chip_smoke
+    api = chip_smoke.task_api()          # the runner's default device
+    assert api.runner_kw == {}
+    kernels.reset_launches()
+    run = chip_smoke.run_edge(api, dict(chip_smoke.TASK_CONF, **_TASK_CONF),
+                              _edge_batches(53, 1, 200_000), 1,
+                              str(tmp_path))
+    assert set(run.umbilical.states.values()) == {"SUCCEEDED"}
+    (mrunner, _g, _s), = run.maps
+    (rrunner, _g, _s), = run.reducers
+    assert mrunner.device.type == rrunner.device.type == "cuda"
+    assert mrunner.outputs["reduce"].sorter.device.type == "cuda"
+    assert rrunner.inputs["map"].merge_manager.device.type == "cuda"
+    assert kernels.launches["fnv_hash_lanes"] > 0

@@ -108,16 +108,17 @@ def test_import_guard_no_jax_no_tez_tpu():
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        import importlib, pkgutil
         import tez_tpu_torch
-        from tez_tpu_torch.common import (clock, counters, faults, metrics,
-                                          payload, tracing)
-        from tez_tpu_torch.library import (comparators, merge_manager,
-                                           partitioners, util)
-        from tez_tpu_torch.obs import flight
-        from tez_tpu_torch.ops import (_build, async_stage, block_merge,
-                                       device, device_pipeline, host_sort,
-                                       kernels, keycodec, native, runformat,
-                                       serde, sorter)
+        names = [m.name for m in pkgutil.walk_packages(
+            tez_tpu_torch.__path__, "tez_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        # every package of the port, and the modules of this slice
+        for name in ("api.events", "am.edge", "runtime.task_runner",
+                     "shuffle.service", "store.lineage", "library.inputs",
+                     "library.outputs", "ops.sorter"):
+            assert "tez_tpu_torch." + name in names, name
         bad = [m for m in sys.modules
                if m == "tez_tpu" or m.startswith("tez_tpu.")
                or m == "jax" or m.startswith("jax.")]

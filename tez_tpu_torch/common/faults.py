@@ -19,7 +19,7 @@ Modes per rule:
 Rules are installed under a *scope* token, so concurrent users in one
 process don't interfere: each scope's rules come and go atomically and
 `clear(scope)` removes exactly its own.  (tez_tpu's ``install_from_conf``
-arms from a DAG conf; it comes with the port's config module.)
+arms from a DAG conf; it comes with the port's AM, which arms per DAG.)
 
 Spec grammar (``tez.test.fault.spec``)::
 
@@ -70,6 +70,28 @@ KNOWN_POINTS: Dict[str, str] = {
     "spill.read":
         "ops/runformat.py spill reads (Run.load, FileRun block reads); "
         "corrupt mode flips stored bytes so the CRC path must catch it",
+    "shuffle.fetch.read":
+        "shuffle fetch read: FetchSession.fetch_range and the in-process "
+        "local-fetch short circuit (library/inputs.py)",
+    "shuffle.data":
+        "shuffle/service.py payload integrity: corrupt mode round-trips the "
+        "served partition through the checksummed Run wire blob",
+    "task.run":
+        "runtime/task_runner.py processor invocation (detail = attempt id; "
+        "delay mode makes an attempt a straggler, fail mode crashes it)",
+    "fence.stale_epoch":
+        "observability point fired wherever a stale-epoch actor is rejected "
+        "(task_comm, shuffle service/server, committer publish fence)",
+    "fence.stale_window":
+        "observability point fired wherever a stale-WINDOW actor is "
+        "rejected — the streaming generalization of fence.stale_epoch "
+        "(umbilical, shuffle register/push/fetch, store publish)",
+    "store.replica.lost":
+        "shuffle/service.py consumer-side fetch chain (detail = "
+        "path/spill); fail mode declares the PRIMARY copies lost — store "
+        "entry and local registration both — so the fetch must "
+        "reconstruct from the coded push replica (store.replica.failover "
+        "proves no producer re-ran)",
 }
 
 _EXC_KINDS = {

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the tez_tpu_torch data plane once on one CUDA card.
+"""Drive the tez_tpu_torch data plane and DAG runtime on one CUDA card.
 
 Run from the root of the repository, on a machine with one NVIDIA card:
 
@@ -86,13 +86,25 @@ Phases, each checked, none allowed to fail:
    sum combiner, C pipelined; every reducer's output equal to a numpy
    Counter golden in strictly increasing key order, B's and C's equal to
    A's, every task SUCCEEDED without a failover, and the counters
-   consistent with the records and the partitions.
+   consistent with the records and the partitions;
+11. OrderedWordCount through the port's own TezClient and DAGAppMaster
+   (local thread runners, the tasks on the card), bench.py's DAG
+   (_run_wordcount: 4 tokenizers in vector mode, 4 summations, 1 sorter,
+   io.sort.mb 512, the device sorter) over a 1 GiB corpus in bench.py's
+   layout (8,192 words a line) of Zipf(1.3) words of phase 8's
+   vocabulary, its staging directory under $TMPDIR: leg A with the sum
+   combiner, leg B without, so every word crosses the first edge; each
+   leg SUCCEEDED with _SUCCESS written, its output equal to the drawn
+   words' counts in non-decreasing count order, no failover and the
+   breaker closed, and B's part file byte-identical to A's; the DAG wall,
+   each vertex's span from the AM's history, the AM's share of the wall
+   and bench.py's four counters are printed.
 
-Kernel launch counts are zeroed before each path of phases 3-6 and 8-10
+Kernel launch counts are zeroed before each path of phases 3-6 and 8-11
 and read after it: each TPU kernel's counterpart on the path must have
 been launched, and the general-query merge rank, which the main path no
 longer calls, not at all; the JSON line reports their sum over phases
-3-6 and 8-10.  The
+3-6 and 8-11.  The
 last two lines are one JSON object of per-kernel numbers and {"ok": true,
 "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -2589,6 +2601,345 @@ def task_phase(args, device="cuda", **sizes) -> dict:
     return dict(totals)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: OrderedWordCount through the port's TezClient and AM
+# ---------------------------------------------------------------------------
+#: phase 11's DAG: bench.py's _run_wordcount (tez_tpu's bench) at a corpus
+#: of 1 GiB; leg A combines on the first edge, leg B ships every word
+DAG_CONF = {"tez.runtime.io.sort.mb": 512,
+            "tez.runtime.sorter.class": "device"}
+DAG_SHAPE = dict(tokenizer_parallelism=4, summation_parallelism=4,
+                 sorter_parallelism=1, tokenizer_mode="vector")
+DAG_LEGS = {"A": {"combine": True}, "B": {"combine": False}}
+DAG_SIZES = dict(corpus_mb=1024, vocab_size=SPILL_VOCAB, conf={})
+#: a size the plain versions run in seconds: each tokenizer's span still
+#: clears the 65,536-record device floor at io.sort.mb 4
+TINY_DAG = dict(corpus_mb=4, vocab_size=20_000,
+                conf={"tez.runtime.io.sort.mb": 4})
+WORDS_PER_LINE = 8192
+#: untimed history: the events of one run that each entity emits, in order
+ENTITY_FIELDS = ("attempt_id", "task_id", "vertex_id", "dag_id")
+
+
+def dag_api(root: str = "tez_tpu_torch", device=None):
+    """The DAG-level API of a package as one namespace: the port's, or
+    (root="tez_tpu") the reference's, which the parity tests drive through
+    the same helpers.  device is the port's AM device (tez_tpu's client
+    takes none)."""
+    import importlib
+    import types
+
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
+    return types.SimpleNamespace(
+        root=root, dag=mod("dag.dag"), payload=mod("common.payload"),
+        edge_config=mod("library.conf").OrderedPartitionedKVEdgeConfig,
+        TezClient=mod("client.tez_client").TezClient,
+        recovery=mod("am.recovery"),
+        client_kw={} if device is None else {"device": device})
+
+
+def wordcount_description(inputs, output: str, tokenizer_parallelism=-1,
+                          summation_parallelism=2, sorter_parallelism=1,
+                          combine=True, pipelined=False,
+                          tokenizer_mode="simple") -> dict:
+    """OrderedWordCount (examples/ordered_wordcount.py build_dag) as one
+    description both packages build from; "{root}" names the package."""
+    owc = "{root}.examples.ordered_wordcount:"
+    e1 = {"tez.runtime.combiner.class": "sum_long"} if combine else {}
+    if pipelined:
+        e1["tez.runtime.pipelined-shuffle.enabled"] = True
+    tok = "VectorTokenProcessor" if tokenizer_mode == "vector" \
+        else "TokenProcessor"
+    return {
+        "name": "OrderedWordCount",
+        "vertices": [
+            {"name": "tokenizer", "processor": owc + tok,
+             "parallelism": tokenizer_parallelism,
+             "sources": [("input", "{root}.io.text:TextInput",
+                          "{root}.io.text:TextSplitGenerator",
+                          {"paths": list(inputs),
+                           "desired_splits": tokenizer_parallelism})]},
+            {"name": "summation", "processor": owc + "SumProcessor",
+             "parallelism": summation_parallelism},
+            {"name": "sorter", "processor": owc + "NoOpSorterProcessor",
+             "parallelism": sorter_parallelism,
+             "sinks": [("output", "{root}.io.file_output:FileOutput",
+                        "{root}.io.file_output:FileOutputCommitter",
+                        {"path": output, "key_serde": "text",
+                         "value_serde": "text"}, {"path": output})]}],
+        "edges": [("tokenizer", "summation", "bytes", "long", e1),
+                  ("summation", "sorter", "long", "bytes", {})]}
+
+
+def build_dag(api, desc: dict):
+    """desc built with api's DSL: vertices (name, processor, parallelism,
+    payload, conf, data sources and sinks) added in order, then ordered
+    scatter-gather edges (key serde, value serde, edge conf); an edge end
+    that names no vertex of desc is a vertex outside the DAG.  Raises
+    what the DSL raises."""
+    d, p = api.dag, api.payload
+
+    def cls(name: str) -> str:
+        return name.format(root=api.root)
+    dag = d.DAG.create(desc["name"])
+    for k, v in desc.get("conf", {}).items():
+        dag.set_conf(k, v)
+    vertices = {}
+    for v in desc["vertices"]:
+        vx = d.Vertex.create(v["name"], p.ProcessorDescriptor.create(
+            cls(v["processor"]), payload=v.get("payload")), v["parallelism"])
+        for k, val in v.get("conf", {}).items():
+            vx.set_conf(k, val)
+        for name, inp, init, payload in v.get("sources", ()):
+            vx.add_data_source(name, d.DataSourceDescriptor.create(
+                p.InputDescriptor.create(cls(inp)),
+                p.InputInitializerDescriptor.create(cls(init),
+                                                    payload=payload)))
+        for name, out, committer, payload, cpayload in v.get("sinks", ()):
+            vx.add_data_sink(name, d.DataSinkDescriptor.create(
+                p.OutputDescriptor.create(cls(out), payload=payload),
+                p.OutputCommitterDescriptor.create(cls(committer),
+                                                   payload=cpayload)))
+        vertices.setdefault(v["name"], vx)
+        dag.add_vertex(vx)
+    for src, dst, key, value, conf in desc["edges"]:
+        ends = [vertices.get(n) or d.Vertex.create(
+                    n, p.ProcessorDescriptor.create(
+                        cls("{root}.library.processors:SimpleProcessor")), 1)
+                for n in (src, dst)]
+        builder = api.edge_config.new_builder(key, value)
+        for k, val in conf.items():
+            builder.set_conf(k, val)
+        dag.add_edge(d.Edge.create(
+            *ends, builder.build().create_default_edge_property()))
+    return dag
+
+
+class DagRun:
+    """One DAG's run through a package's TezClient: the final state, the
+    wall time from submit to completion, the DAG's counters, the AM's
+    history events and the recovery journal's lines."""
+
+    def __init__(self, state, wall, counters, events, journal):
+        self.state, self.wall, self.counters = state, wall, counters
+        self.events, self.journal = events, journal
+
+    def vertex_spans(self) -> dict:
+        """vertex name -> (first task start, last task finish), wall-clock
+        seconds, from the history's task events."""
+        from tez_tpu_torch.am.history import HistoryEventType as H
+        names, spans = {}, {}
+        for ev in self.events:
+            if ev.event_type.name == H.TASK_STARTED.name:
+                names[ev.vertex_id] = ev.data["vertex_name"]
+        for ev in self.events:
+            kind = ev.event_type.name
+            if kind not in (H.TASK_STARTED.name, H.TASK_FINISHED.name):
+                continue
+            lo, hi = spans.get(names[ev.vertex_id], (math.inf, -math.inf))
+            spans[names[ev.vertex_id]] = (
+                min(lo, ev.timestamp) if kind == H.TASK_STARTED.name else lo,
+                max(hi, ev.timestamp) if kind == H.TASK_FINISHED.name
+                else hi)
+        return spans
+
+    def entity_sequences(self, events=None) -> dict:
+        """Each DAG entity's history event types in order, keyed by its id
+        with the application id cut out (the ids of two runs differ only
+        there)."""
+        out: dict = collections.defaultdict(list)
+        for ev in self.events if events is None else events:
+            for field in ENTITY_FIELDS:
+                ident = getattr(ev, field)
+                if ident:
+                    key = ident.split("_", 3)[-1] if field != "dag_id" \
+                        else "dag"
+                    out[(field, key)].append(ev.event_type.name)
+                    break
+        return dict(out)
+
+
+def run_dag(api, desc: dict, conf: dict, timeout: float = 3600) -> DagRun:
+    """desc through api's TezClient and AM (conf must name the staging
+    directory): the DAG is built, submitted and waited for; the history
+    is the AM's in-memory logging service."""
+    client = api.TezClient.create(desc["name"], conf, **api.client_kw)
+    client.start()
+    try:
+        am = client.framework_client.am
+        dag = build_dag(api, desc)
+        t0 = time.perf_counter()
+        handle = client.submit_dag(dag)
+        status = handle.wait_for_completion(timeout=timeout)
+        wall = time.perf_counter() - t0
+        service, app_id = am.logging_service, am.app_id
+    finally:
+        client.stop()
+    path = os.path.join(conf["tez.staging-dir"], app_id, "recovery", "1",
+                        "journal.jsonl")
+    journal = []
+    if os.path.exists(path):
+        with open(path) as fh:
+            journal = [line.rstrip("\n") for line in fh if line.strip()]
+    return DagRun(status.state.name, wall,
+                  status.counters.to_dict() if status.counters else {},
+                  list(service.events), journal)
+
+
+def write_corpus(path: str, rng, mat, lens, nbytes: int,
+                 words_per_line: int = WORDS_PER_LINE,
+                 chunk_lines: int = 128) -> np.ndarray:
+    """bench.py's corpus layout (_make_corpus: Zipf(1.3) word ids,
+    words_per_line words a line joined by spaces) over the words of (mat,
+    lens), drawn chunk_lines lines at a time until the file holds nbytes;
+    returns the count of each word (the golden)."""
+    vocab = len(lens)
+    # the vocabulary as one ragged pool, each word followed by a space
+    pool_lens = lens + 1
+    pool_offs = np.zeros(vocab + 1, np.int64)
+    np.cumsum(pool_lens, out=pool_offs[1:])
+    pool = np.full(int(pool_offs[-1]), 32, np.uint8)
+    keep = np.arange(16)[None, :] < lens[:, None]
+    pool[(pool_offs[:-1, None] + np.arange(16)[None, :])[keep]] = mat[keep]
+    counts = np.zeros(vocab, np.int64)
+    written = 0
+    chunk_words = words_per_line * chunk_lines
+    with open(path, "wb") as fh:
+        while written < nbytes:
+            ids = rng.zipf(ZIPF_A, chunk_words).astype(np.int64) % vocab
+            counts += np.bincount(ids, minlength=vocab)
+            ends = np.cumsum(pool_lens[ids])
+            starts = ends - pool_lens[ids]
+            total = int(ends[-1])
+            rows = np.repeat(pool_offs[ids] - starts, pool_lens[ids])
+            text = pool[rows + np.arange(total)]
+            text[ends[words_per_line - 1::words_per_line] - 1] = 10
+            fh.write(text.tobytes())
+            written += total
+    return counts
+
+
+def read_wordcount(out_dir: str) -> tuple:
+    """The part files of OrderedWordCount's output: their bytes in name
+    order, and the (word, count) rows they hold."""
+    data = b"".join(
+        open(os.path.join(out_dir, f), "rb").read()
+        for f in sorted(os.listdir(out_dir)) if f.startswith("part-"))
+    rows = [line.rsplit(b"\t", 1) for line in data.split(b"\n") if line]
+    return data, [(w, int(c)) for w, c in rows]
+
+
+def check_wordcount(label: str, out_dir: str, mat, lens,
+                    golden: np.ndarray) -> bytes:
+    """OrderedWordCount's output against the golden: _SUCCESS written,
+    each drawn word's count exact, no other word, counts non-decreasing.
+    Returns the part files' bytes."""
+    check(os.path.exists(os.path.join(out_dir, "_SUCCESS")),
+          f"{label}: no _SUCCESS in {out_dir}")
+    data, rows = read_wordcount(out_dir)
+    want = {mat[i, :lens[i]].tobytes(): int(golden[i])
+            for i in np.flatnonzero(golden)}
+    got = dict(rows)
+    check(len(got) == len(rows), f"{label}: a word appears twice")
+    check(got == want, f"{label}: output differs from the golden "
+                       f"({len(got)} words against {len(want)})")
+    counts = np.array([c for _w, c in rows], np.int64)
+    check(bool(np.all(np.diff(counts) >= 0)),
+          f"{label}: counts are not non-decreasing")
+    return data
+
+
+def union_length(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, reach = 0.0, -math.inf
+    for lo, hi in sorted(intervals):
+        if hi > reach:
+            total += hi - max(lo, reach)
+            reach = hi
+    return total
+
+
+#: the DAG counters bench.py reports
+BENCH_COUNTERS = ("SHUFFLE_BYTES", "SPILLED_RECORDS", "OUTPUT_RECORDS",
+                  "REDUCE_INPUT_RECORDS")
+
+
+def bench_counters(counters: dict) -> dict:
+    out = dict.fromkeys(BENCH_COUNTERS, 0)
+    for group in counters.values():
+        for name in BENCH_COUNTERS:
+            out[name] += group.get(name, 0)
+    return out
+
+
+def dag_phase(args, device="cuda", **sizes) -> dict:
+    """Phase 11; returns the kernel launches of its legs."""
+    import torch
+    from tez_tpu_torch.ops import async_stage
+    from tez_tpu_torch.ops.async_stage import COUNTER_GROUP, process_breaker
+    sz = dict(DAG_SIZES, **sizes)
+    api = dag_api(device=device)
+    rng = np.random.default_rng(args.seed + 11)
+    totals: collections.Counter = collections.Counter()
+    parts = {}
+    async_stage.reset_process_breaker()
+    with tempfile.TemporaryDirectory(prefix="tez_dag_") as root:
+        t0 = time.perf_counter()
+        mat, lens = bulk_word_vocab(rng, sz["vocab_size"])
+        corpus = os.path.join(root, "corpus.txt")
+        golden = write_corpus(corpus, rng, mat, lens,
+                              int(sz["corpus_mb"] * (1 << 20)))
+        nbytes = os.path.getsize(corpus)
+        log(f"dag: corpus {nbytes} bytes, {int(golden.sum())} words, "
+            f"{int(np.count_nonzero(golden))} distinct, made in "
+            f"{time.perf_counter() - t0:.3f} s")
+        for leg, shape in DAG_LEGS.items():
+            label = f"dag {leg}"
+            out_dir = os.path.join(root, f"out_{leg}")
+            conf = dict(DAG_CONF, **sz["conf"], **{
+                "tez.staging-dir": os.path.join(root, f"staging_{leg}")})
+            desc = wordcount_description([corpus], out_dir,
+                                         **DAG_SHAPE, **shape)
+            if is_cuda(device):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            with Launches(label, totals) as launches:
+                run = run_dag(api, desc, conf)
+                sync(device)
+            check(run.state == "SUCCEEDED", f"{label}: state {run.state}")
+            parts[leg] = check_wordcount(label, out_dir, mat, lens, golden)
+            moved = {k: v for k, v in run.counters.get(COUNTER_GROUP,
+                                                       {}).items() if v}
+            check(not moved, f"{label}: DeviceFailover counters moved "
+                             f"{moved}")
+            br = process_breaker()
+            check(br.state == "closed" and br.trips == 0,
+                  f"{label}: breaker {br.state}, {br.trips} trips")
+            spans = run.vertex_spans()
+            in_vertices = union_length(spans.values())
+            peak = torch.cuda.max_memory_allocated() / 2**30 \
+                if is_cuda(device) else float("nan")
+            disk = {k: sum(g.get(k, 0) for g in run.counters.values())
+                    for k in ("FILE_BYTES_WRITTEN", "FILE_BYTES_READ",
+                              "ADDITIONAL_SPILLS_BYTES_WRITTEN",
+                              "ADDITIONAL_SPILLS_BYTES_READ")}
+            log(f"phase {label}: wall_s={run.wall:.3f} "
+                f"MB={nbytes / 1e6:.1f} "
+                f"MB_per_s={nbytes / 1e6 / run.wall:.1f}")
+            log(f"{label}: vertex walls s "
+                f"{json.dumps({v: round(hi - lo, 3) for v, (lo, hi) in spans.items()})}; "
+                f"AM share s {run.wall - in_vertices:.3f} (the DAG wall "
+                f"less the union of the vertices' spans)")
+            log(f"{label}: counters {json.dumps(bench_counters(run.counters))}; "
+                f"disk bytes {json.dumps(disk)}; peak device memory "
+                f"{peak:.3f} GiB")
+            launches.require(device, "fnv_hash_lanes", "merge_path_pair")
+    check(parts["A"] == parts["B"], "dag B: part file differs from leg A's")
+    log("dag: legs A-B passed")
+    return dict(totals)
+
+
 class SettableClock:
     """A clock that stands still until advanced: the breaker's cooldown
     in phase 7 elapses when the script says so, not by wall time."""
@@ -2678,22 +3029,29 @@ def main(argv=None) -> int:
     task_launches = task_phase(args)
     log(f"tasks: {time.perf_counter() - t0:.3f} s, launches "
         f"{json.dumps(task_launches)}")
+    t0 = time.perf_counter()
+    log(f"dag phase on {card}")
+    dag_launches = dag_phase(args)
+    log(f"dag: {time.perf_counter() - t0:.3f} s, launches "
+        f"{json.dumps(dag_launches)}")
     launches = collections.Counter(launches)
     launches.update(spill_launches)
     launches.update(merge_launches)
     launches.update(task_launches)
+    launches.update(dag_launches)
     for kname, row in rows.items():
         row["launches"] = launches[kname]
     for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:
         for kname in names:
             log(f"launch check: {tpu_kernel} ({where}) -> {kname}: "
                 f"{launches[kname]} launches on the slice, the spill "
-                f"path, the merge legs and the tasks")
+                f"path, the merge legs, the tasks and the DAG")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
         f"counterpart, held in phase 2): {launches['merge_rank']} launches "
-        f"on the slice, the spill path, the merge legs and the tasks")
+        f"on the slice, the spill path, the merge legs, the tasks and the "
+        f"DAG")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

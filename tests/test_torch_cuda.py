@@ -1182,3 +1182,65 @@ def test_task_runner_defaults_to_the_card(cuda, tmp_path):
     assert mrunner.outputs["reduce"].sorter.device.type == "cuda"
     assert rrunner.inputs["map"].merge_manager.device.type == "cuda"
     assert kernels.launches["fnv_hash_lanes"] > 0
+
+
+def _dag_corpus(tmp_path, seed):
+    """An 8 MiB corpus in bench.py's layout over 20,000 words."""
+    import chip_smoke
+    rng = np.random.default_rng(seed)
+    mat, lens = chip_smoke.bulk_word_vocab(rng, 20_000)
+    path = str(tmp_path / "in.txt")
+    chip_smoke.write_corpus(path, rng, mat, lens, 8 << 20,
+                            words_per_line=512, chunk_lines=64)
+    return path
+
+
+def _wordcount(tmp_path, corpus, name, device, combine=True):
+    """Phase 11's DAG through the port's TezClient at io.sort.mb 4, every
+    span and merge on the device engine; the part files' bytes."""
+    import chip_smoke
+    out = str(tmp_path / name)
+    desc = chip_smoke.wordcount_description(
+        [corpus], out, combine=combine, **chip_smoke.DAG_SHAPE)
+    conf = dict(chip_smoke.DAG_CONF, **chip_smoke.TINY_DAG["conf"],
+                **{"tez.staging-dir": str(tmp_path / f"{name}_stg"),
+                   "tez.runtime.tpu.device.sort.min.records": 0})
+    run = chip_smoke.run_dag(chip_smoke.dag_api(device=device), desc, conf)
+    assert run.state == "SUCCEEDED"
+    assert os.path.exists(os.path.join(out, "_SUCCESS"))
+    return chip_smoke.read_wordcount(out)[0]
+
+
+@pytest.mark.parametrize("combine", [True, False])
+def test_dag_wordcount_on_the_card_matches_host(cuda, tmp_path, combine):
+    """OrderedWordCount through the port's own TezClient and AM on the
+    card and on the host: the same part file, and the card run launched
+    both kernels (and not the general merge rank)."""
+    corpus = _dag_corpus(tmp_path, 61)
+    kernels.reset_launches()
+    card = _wordcount(tmp_path, corpus, "card", "cuda", combine)
+    launches = dict(kernels.launches)
+    host = _wordcount(tmp_path, corpus, "host", "cpu", combine)
+    assert card == host and card
+    assert launches["fnv_hash_lanes"] > 0
+    assert launches["merge_path_pair"] > 0
+    assert launches["merge_rank"] == 0
+
+
+def test_dag_wordcount_on_the_card_is_deterministic(cuda, tmp_path):
+    """Two runs on the card at the library's defaults (two readback
+    workers, paced by nothing; a runner thread a core): one through the
+    client on its default device, one through ordered_wordcount.run; the
+    same bytes."""
+    from tez_tpu_torch.examples import ordered_wordcount
+    import chip_smoke
+    corpus = _dag_corpus(tmp_path, 62)
+    first = _wordcount(tmp_path, corpus, "first", None, combine=False)
+    out = str(tmp_path / "second")
+    state = ordered_wordcount.run(
+        [corpus], out, conf=dict(
+            chip_smoke.DAG_CONF, **chip_smoke.TINY_DAG["conf"],
+            **{"tez.staging-dir": str(tmp_path / "second_stg")}),
+        combine=False, **chip_smoke.DAG_SHAPE)
+    assert state == "SUCCEEDED"
+    assert chip_smoke.read_wordcount(out)[0] == first and first

@@ -1,0 +1,501 @@
+"""Port parity of the DAG runtime: OrderedWordCount and small failing DAGs
+built from one description (chip_smoke.build_dag) in both packages and run
+through each package's own TezClient and DAGAppMaster in local thread mode,
+tez_tpu's on JAX's CPU backend, the port's with device="cpu" (the kernels'
+plain versions).
+
+Compared without tolerance: the DSL's verdicts and the DAG plans (with
+descriptor names mapped from tez_tpu. to tez_tpu_torch.), the committed
+part files byte for byte, the final states, the untimed DAG counters,
+each entity's sequence of history event types and the decoded lines of
+the recovery journal.
+
+tez_tpu's vectorised tokenizer feeds its native word-count aggregator
+whenever libtezhost.so loads and the edge combines; the port has no
+native host library yet and takes the numpy split path.  The output is
+the same either way, the tokenizer's counters are not, so counters are
+compared with tez_tpu's aggregator switched off (in the test only), and
+one case with it on compares the part files alone.  The rest of tez_tpu's
+native library stays on: the port's numpy precombine is the counterpart
+of its hash_sum_native, which tez_tpu skips without the library.
+
+Which spans spill follows their completion order, and which batches a
+merge takes follows the commits' race with the merger, so both packages
+get one readback worker and paced commits (tests/test_torch_task_io.py),
+and two runner threads.
+"""
+import dataclasses
+import enum
+import os
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from tez_tpu.common import faults as jfaults
+from tez_tpu.library import merge_manager as jmm
+from tez_tpu.library.processors import SimpleProcessor as JSimpleProcessor
+from tez_tpu.ops import async_stage as jasync
+from tez_tpu.ops import native as jnative
+from tez_tpu_torch.common import faults as tfaults
+from tez_tpu_torch.library import merge_manager as tmm
+from tez_tpu_torch.library.processors import (
+    SimpleProcessor as TSimpleProcessor)
+from tez_tpu_torch.ops import async_stage as tasync
+
+ROOTS = ("tez_tpu_torch", "tez_tpu")
+#: two runner threads; the device sorter on both edges
+BASE_CONF = {"tez.am.local.num-containers": 2,
+             "tez.runtime.sorter.class": "device",
+             "tez.runtime.tpu.device.sort.min.records": 0}
+#: pipelined shuffle with synchronous spans (tests/test_torch_task_io.py:
+#: tez_tpu's pipelined output on its async plane trips tests/conftest.py's
+#: lock-order witness)
+PIPELINED_CONF = {"tez.runtime.sort.pipeline.depth": 0}
+
+#: case -> (description kw, conf, corpus files, corpus words)
+CASES = {
+    "combine": (dict(combine=True), {}, 1, 6000),
+    "no_combine": (dict(combine=False), {}, 1, 6000),
+    #: io.sort.mb 1: several spills a tokenizer, each shipped on its own
+    "combine_pipelined": (dict(combine=True, pipelined=True),
+                          dict(PIPELINED_CONF, **{
+                              "tez.runtime.io.sort.mb": 1}), 1, 200_000),
+    "multi_file": (dict(tokenizer_parallelism=4), {}, 3, 3000),
+    "vector": (dict(tokenizer_mode="vector"), {}, 1, 6000),
+    "vector_no_combine": (dict(tokenizer_mode="vector", combine=False), {},
+                          1, 6000),
+    "two_sorters": (dict(sorter_parallelism=2, summation_parallelism=3), {},
+                    1, 6000),
+    #: spans of over 65,536 records at io.sort.mb 4 with the library's
+    #: device floor
+    "device_floor": (dict(tokenizer_mode="vector", combine=False),
+                     {"tez.runtime.io.sort.mb": 4,
+                      "tez.runtime.tpu.device.sort.min.records": 65536},
+                     1, 400_000),
+}
+
+
+@pytest.fixture(autouse=True)
+def _deterministic_planes(monkeypatch):
+    """Both packages: planes reset, one readback worker, paced commits."""
+    for faults, asyncs in ((tfaults, tasync), (jfaults, jasync)):
+        faults.clear_all()
+        asyncs.reset_process_breaker()
+
+        def one_worker(self, *a, _real=asyncs.AsyncSpanPipeline.__init__,
+                       **kw):
+            _real(self, *a, **dict(kw, readback_workers=1))
+        monkeypatch.setattr(asyncs.AsyncSpanPipeline, "__init__", one_worker)
+    for mm in (tmm, jmm):
+        def paced(self, *a, _real=mm.ShuffleMergeManager.commit, **kw):
+            out = _real(self, *a, **kw)
+            assert self.quiesce(timeout=120), "merger never went idle"
+            return out
+        monkeypatch.setattr(mm.ShuffleMergeManager, "commit", paced)
+    yield
+    for faults, asyncs in ((tfaults, tasync), (jfaults, jasync)):
+        faults.clear_all()
+        asyncs.reset_process_breaker()
+
+
+def api_of(root):
+    return chip_smoke.dag_api(root, device="cpu" if root == ROOTS[0]
+                              else None)
+
+
+def corpus(tmp_path, files, words, seed=0):
+    """`files` seeded corpora in bench.py's layout; their paths."""
+    rng = np.random.default_rng(seed)
+    mat, lens = chip_smoke.bulk_word_vocab(rng, 3000)
+    paths = []
+    for i in range(files):
+        path = str(tmp_path / f"in{i}.txt")
+        chip_smoke.write_corpus(path, rng, mat, lens, words * 9,
+                                words_per_line=64, chunk_lines=16)
+        paths.append(path)
+    return paths
+
+
+class KernelSpy:
+    """Calls of the port's two kernels' wrappers (on the CPU, their plain
+    versions)."""
+
+    def __init__(self, monkeypatch):
+        from tez_tpu_torch.ops import kernels
+        self.calls = dict.fromkeys(("fnv_hash_lanes", "merge_path_pair"), 0)
+        for name in self.calls:
+            def spy(*a, _real=getattr(kernels, name), _name=name, **kw):
+                self.calls[_name] += 1
+                return _real(*a, **kw)
+            monkeypatch.setattr(kernels, name, spy)
+
+
+def run_case(tmp_path, root, desc_kw, conf, paths):
+    out = str(tmp_path / root / "out")
+    desc = chip_smoke.wordcount_description(paths, out, **desc_kw)
+    run = chip_smoke.run_dag(api_of(root), desc, dict(
+        BASE_CONF, **conf, **{"tez.staging-dir": str(tmp_path / root)}))
+    data, _rows = chip_smoke.read_wordcount(out)
+    return run, data, os.path.exists(os.path.join(out, "_SUCCESS"))
+
+
+def untimed(counters):
+    """Every DAG counter but the times, the process's memory and the
+    latency histograms."""
+    skip = ("MILLI", "_TIME", "MEMORY", "HEAP", "time_taken")
+    return {g: {c: v for c, v in cs.items() if not any(s in c for s in skip)}
+            for g, cs in counters.items()
+            if not g.startswith("LatencyHistogram")}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ordered_wordcount_matches_tez_tpu(tmp_path, monkeypatch, case):
+    desc_kw, conf, files, words = CASES[case]
+    monkeypatch.setattr(jnative.WordCountAggregator, "create",
+                        staticmethod(lambda: None))
+    spy = KernelSpy(monkeypatch)
+    paths = corpus(tmp_path, files, words)
+    (t, t_parts, t_ok), (j, j_parts, j_ok) = (
+        run_case(tmp_path, root, desc_kw, conf, paths) for root in ROOTS)
+    assert t.state == j.state == "SUCCEEDED"
+    assert t_ok and j_ok
+    assert t_parts == j_parts and t_parts
+    assert untimed(t.counters) == untimed(j.counters)
+    assert spy.calls["fnv_hash_lanes"] > 0 and \
+        spy.calls["merge_path_pair"] > 0
+
+
+def test_ordered_wordcount_matches_tez_tpu_with_its_native_library(
+        tmp_path):
+    """tez_tpu's tokenizer on its native aggregator (where libtezhost.so
+    loads), the port's on numpy: the same part files."""
+    paths = corpus(tmp_path, 1, 6000)
+    parts = [run_case(tmp_path, root, dict(tokenizer_mode="vector"), {},
+                      paths)[1] for root in ROOTS]
+    assert parts[0] == parts[1] and parts[0]
+
+
+# -- (a) the DSL and the plan ------------------------------------------------
+def plan_tree(obj):
+    """A DAG plan as plain Python: dataclasses as dicts, enums by name,
+    payloads loaded, names of the port's modules as tez_tpu's."""
+    if dataclasses.is_dataclass(obj):
+        if type(obj).__name__ == "UserPayload":
+            return plan_tree(obj.load())
+        return {f.name: plan_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, enum.Enum):
+        return obj.name
+    if isinstance(obj, dict):
+        return {plan_tree(k): plan_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [plan_tree(v) for v in obj]
+    if isinstance(obj, str):
+        return obj.replace("tez_tpu_torch.", "tez_tpu.")
+    return obj
+
+
+WORDCOUNT_SHAPES = {
+    "default": {},
+    "bench": dict(tokenizer_parallelism=4, summation_parallelism=4,
+                  tokenizer_mode="vector"),
+    "pipelined": dict(combine=False, pipelined=True, sorter_parallelism=2),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(WORDCOUNT_SHAPES))
+def test_wordcount_plan_matches_tez_tpu(shape):
+    """The description's DAG is each package's own OrderedWordCount
+    (examples/ordered_wordcount.py build_dag), and the two packages' plans
+    are equal but for the package names."""
+    import importlib
+    kw = WORDCOUNT_SHAPES[shape]
+    conf = {"tez.runtime.io.sort.mb": 64}
+    trees = []
+    for root in ROOTS:
+        desc = chip_smoke.wordcount_description(["/in/a", "/in/b"], "/out",
+                                                **kw)
+        plan = chip_smoke.build_dag(api_of(root), desc).create_dag_plan(conf)
+        owc = importlib.import_module(f"{root}.examples.ordered_wordcount")
+        own = owc.build_dag(["/in/a", "/in/b"], "/out", **kw)
+        assert plan_tree(plan) == plan_tree(own.create_dag_plan(conf))
+        trees.append(plan_tree(plan))
+    assert trees[0] == trees[1]
+
+
+def _v(name, parallelism=1):
+    return {"name": name, "parallelism": parallelism,
+            "processor": "{root}.library.processors:SimpleProcessor"}
+
+
+def _e(src, dst):
+    return (src, dst, "bytes", "long", {})
+
+
+#: the DSL's shapes from tests/test_dag_api.py, each a description
+DSL_SHAPES = {
+    "linear": ([_v("a", 2), _v("b", 2), _v("c")],
+               [_e("a", "b"), _e("b", "c")]),
+    "cycle": ([_v("a"), _v("b")], [_e("a", "b"), _e("b", "a")]),
+    "self_edge": ([_v("a")], [_e("a", "a")]),
+    "duplicate_vertex": ([_v("a"), _v("a")], []),
+    "dangling_edge": ([_v("a")], [_e("a", "b")]),
+    "disconnected": ([_v(n) for n in "abcd"], [_e("a", "b"), _e("c", "d")]),
+    "bad_parallelism": ([_v("a", 0)], []),
+}
+
+
+def dsl_outcome(root, shape):
+    vertices, edges = DSL_SHAPES[shape]
+    desc = {"name": "d", "vertices": vertices, "edges": edges}
+    api = api_of(root)
+    try:
+        dag = chip_smoke.build_dag(api, desc)
+        return ("ok", dag.verify(), plan_tree(dag.create_dag_plan()))
+    except api.dag.TezUncheckedException as e:
+        return ("rejected", str(e))
+
+
+@pytest.mark.parametrize("shape", sorted(DSL_SHAPES))
+def test_dsl_verdicts_match_tez_tpu(shape):
+    verdicts = [dsl_outcome(root, shape) for root in ROOTS]
+    assert verdicts[0] == verdicts[1]
+    assert verdicts[0][0] == ("ok" if shape in ("linear", "disconnected")
+                              else "rejected")
+
+
+# -- (c) failing processors --------------------------------------------------
+class _FailFirstAttempt:
+    def run(self, inputs, outputs):
+        if self.context.task_attempt_number == 0:
+            raise RuntimeError("the first attempt fails")
+
+
+class _AlwaysFail:
+    def run(self, inputs, outputs):
+        raise RuntimeError("every attempt fails")
+
+
+class FailOnce_tez_tpu(_FailFirstAttempt, JSimpleProcessor):
+    pass
+
+
+class FailOnce_tez_tpu_torch(_FailFirstAttempt, TSimpleProcessor):
+    pass
+
+
+class AlwaysFail_tez_tpu(_AlwaysFail, JSimpleProcessor):
+    pass
+
+
+class AlwaysFail_tez_tpu_torch(_AlwaysFail, TSimpleProcessor):
+    pass
+
+
+def attempt_states(run):
+    """task key -> the final states of its attempts, in order."""
+    out = {}
+    for ev in run.events:
+        if ev.event_type.name == "TASK_ATTEMPT_FINISHED":
+            out.setdefault(ev.task_id.split("_", 3)[-1], []).append(
+                ev.data["state"])
+    return out
+
+
+@pytest.mark.parametrize("processor,parallelism,state",
+                         [("FailOnce", 2, "SUCCEEDED"),
+                          ("AlwaysFail", 1, "FAILED")])
+def test_failing_processors_match_tez_tpu(tmp_path, processor, parallelism,
+                                          state):
+    desc = {"name": "failing", "edges": [], "vertices": [
+        {"name": "v", "parallelism": parallelism,
+         "processor": f"{__name__}:{processor}_{{root}}"}]}
+    runs = [chip_smoke.run_dag(api_of(root), desc, dict(BASE_CONF, **{
+        "tez.staging-dir": str(tmp_path / root)})) for root in ROOTS]
+    assert runs[0].state == runs[1].state == state
+    assert attempt_states(runs[0]) == attempt_states(runs[1])
+    assert all(len(a) >= 2 for a in attempt_states(runs[0]).values())
+    assert untimed(runs[0].counters) == untimed(runs[1].counters)
+    assert runs[0].entity_sequences() == runs[1].entity_sequences()
+
+
+# -- (d) history and the recovery journal ------------------------------------
+def test_history_and_journal_match_tez_tpu(tmp_path, monkeypatch):
+    """Each entity's history event types, in order, are the same in both
+    packages; every journal line decodes in both packages to the same
+    event, and the journal holds each entity's history in order."""
+    monkeypatch.setattr(jnative.WordCountAggregator, "create",
+                        staticmethod(lambda: None))
+    paths = corpus(tmp_path, 1, 6000)
+    runs = {root: run_case(tmp_path, root, {}, {}, paths)[0]
+            for root in ROOTS}
+    t, j = runs["tez_tpu_torch"], runs["tez_tpu"]
+    assert t.entity_sequences() == j.entity_sequences()
+    assert t.entity_sequences()[("dag_id", "dag")] == [
+        "DAG_SUBMITTED", "DAG_INITIALIZED", "DAG_STARTED",
+        "DAG_COMMIT_STARTED", "DAG_COMMIT_FINISHED", "DAG_FINISHED"]
+    decoders = {root: api_of(root).recovery.decode_journal_line
+                for root in ROOTS}
+    for root, run in runs.items():
+        assert run.journal
+        mine = [decoders[root](line) for line in run.journal]
+        assert run.entity_sequences(mine) == run.entity_sequences()
+        for other in ROOTS:
+            theirs = [decoders[other](line) for line in run.journal]
+            assert [(e.event_type.name, e.dag_id, e.vertex_id, e.task_id,
+                     e.attempt_id, e.data) for e in theirs] == \
+                [(e.event_type.name, e.dag_id, e.vertex_id, e.task_id,
+                  e.attempt_id, e.data) for e in mine]
+
+
+# -- (e) the device and what is not ported -----------------------------------
+def test_default_device_is_the_card(tmp_path):
+    """TezClient and ordered_wordcount.run default to the card: without
+    one they raise before any AM or DAG starts (no output, no staging)."""
+    import torch
+    from tez_tpu_torch.client.tez_client import TezClient
+    from tez_tpu_torch.examples import ordered_wordcount
+    conf = {"tez.staging-dir": str(tmp_path / "stg")}
+    if torch.cuda.is_available():
+        assert TezClient.create("x", conf).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TezClient.create("x", conf)
+    paths = corpus(tmp_path, 1, 100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ordered_wordcount.run(paths, str(tmp_path / "out"), conf=conf)
+    assert not (tmp_path / "out").exists()
+    assert not (tmp_path / "stg").exists()
+
+
+def _start(conf):
+    from tez_tpu_torch.client.tez_client import TezClient
+    client = TezClient.create("x", conf, device="cpu")
+    try:
+        client.start()
+    finally:
+        client.stop()
+
+
+def _submit(dag_conf):
+    """A one-vertex DAG with `dag_conf` submitted to a local AM."""
+    def go(tmp_path):
+        from tez_tpu_torch.client.tez_client import TezClient
+        desc = {"name": "d", "vertices": [_v("a")], "edges": [],
+                "conf": dag_conf}
+        dag = chip_smoke.build_dag(api_of(ROOTS[0]), desc)
+        with TezClient.create("x", {"tez.staging-dir": str(tmp_path)},
+                              device="cpu") as client:
+            client.submit_dag(dag)
+    return go
+
+
+def _am(attempt=1, call=None):
+    def go(tmp_path):
+        from tez_tpu_torch.am.app_master import DAGAppMaster
+        from tez_tpu_torch.common.config import TezConfiguration
+        am = DAGAppMaster("app_1_0001", TezConfiguration(
+            {"tez.staging-dir": str(tmp_path)}), attempt=attempt,
+            device="cpu")
+        try:
+            call(am)
+        finally:
+            am.stop()
+    return go
+
+
+def _conf_start(extra):
+    return lambda tmp_path: _start(dict(
+        extra, **{"tez.staging-dir": str(tmp_path)}))
+
+
+def _edge_config(name):
+    def go(tmp_path):
+        from tez_tpu_torch.library import conf
+        getattr(conf, name).new_builder("bytes", "long")
+    return go
+
+
+def _mesh_wordcount(tmp_path):
+    from tez_tpu_torch.examples import ordered_wordcount
+    ordered_wordcount.build_dag(["/in"], "/out", exchange="mesh")
+
+
+def _recovery_parser(tmp_path):
+    from tez_tpu_torch.am.recovery import RecoveryParser
+    RecoveryParser(str(tmp_path), "app_1_0001")
+
+
+def _reattach(tmp_path):
+    from tez_tpu_torch.client.tez_client import TezClient
+    with TezClient.create("x", {"tez.staging-dir": str(tmp_path)},
+                          device="cpu") as client:
+        client.reattach()
+
+
+#: each feature the port defers, and how a user would reach it
+DEFERRED = {
+    "runner_subprocess": _conf_start({"tez.runner.mode": "subprocess"}),
+    "runner_pods": _conf_start({"tez.runner.mode": "pods"}),
+    "tls": _conf_start({"tez.runtime.shuffle.ssl.enable": True}),
+    "web_ui": _conf_start({"tez.am.web.enabled": True}),
+    "sharded_dispatcher": _conf_start(
+        {"tez.am.concurrent.dispatcher.shards": 4}),
+    "slo_target": _conf_start({"tez.am.slo.submit.p95-ms": 100.0}),
+    "remote_client": _conf_start({"tez.framework.mode": "remote"}),
+    "speculation": _submit({"tez.am.speculation.enabled": True}),
+    "streaming": _submit({"tez.runtime.stream.id": "s"}),
+    "lock_order_witness": _submit({"tez.debug.lockorder": True}),
+    "buffer_store": _submit({"tez.runtime.store.enabled": True}),
+    "am_attempt_2": _am(attempt=2),
+    "recover_and_resume": _am(call=lambda am: am.recover_and_resume()),
+    "open_stream": _am(call=lambda am: am.open_stream(None)),
+    "recovery_parser": _recovery_parser,
+    "reattach": _reattach,
+    "unordered_edge": _edge_config("UnorderedKVEdgeConfig"),
+    "unordered_partitioned_edge": _edge_config(
+        "UnorderedPartitionedKVEdgeConfig"),
+    "mesh_edge": _edge_config("MeshOrderedPartitionedKVEdgeConfig"),
+    "mesh_wordcount": _mesh_wordcount,
+}
+
+
+@pytest.mark.parametrize("feature", sorted(DEFERRED))
+def test_deferred_features_raise(tmp_path, feature):
+    with pytest.raises(NotImplementedError):
+        DEFERRED[feature](tmp_path)
+
+
+def test_dag_phase_on_the_host():
+    """chip_smoke's phase 11 at TINY_DAG on the CPU: both legs SUCCEEDED,
+    each output equal to the corpus's golden, B's part file A's."""
+    import types
+    chip_smoke.dag_phase(types.SimpleNamespace(seed=0), device="cpu",
+                         **chip_smoke.TINY_DAG)
+
+
+def test_telemetry_rings_match_tez_tpu():
+    """The AM's telemetry plane: the same latency observations and gauges
+    sampled at the same instants give the same windowed aggregates and
+    accounting in both packages' time-series registries."""
+    from tez_tpu.common import metrics as jmetrics
+    from tez_tpu.obs import timeseries as jts
+    from tez_tpu_torch.common import metrics as tmetrics
+    from tez_tpu_torch.obs import timeseries as tts
+    out = []
+    for metrics, ts in ((tmetrics, tts), (jmetrics, jts)):
+        reg = ts.TimeSeriesRegistry(capacity=4)
+        rng = np.random.default_rng(3)
+        for tick in range(6):
+            for ms in rng.exponential(40.0, 50):
+                metrics.observe("test.dag.parity", float(ms))
+            metrics.set_gauge("test.dag.gauge", float(tick))
+            reg.sample(now_ns=tick * 250_000_000)
+        now = 5 * 250_000_000
+        out.append([(reg.window(name, 0.6, now_ns=now),
+                     reg._series[name].evicted)
+                    for name in ("test.dag.parity", "test.dag.gauge")])
+    assert out[0] == out[1]
+    (hist, evicted), (gauge, _) = out[0]
+    assert hist["count"] == 150 and evicted == 2 and gauge["last"] == 5.0

@@ -117,8 +117,27 @@ def test_import_guard_no_jax_no_tez_tpu():
         # every package of the port, and the modules of this slice
         for name in ("api.events", "am.edge", "runtime.task_runner",
                      "shuffle.service", "store.lineage", "library.inputs",
-                     "library.outputs", "ops.sorter"):
+                     "library.outputs", "ops.sorter", "dag.dag",
+                     "client.tez_client", "am.app_master", "am.launcher",
+                     "library.vertex_managers", "io.text",
+                     "io.file_output", "examples.ordered_wordcount"):
             assert "tez_tpu_torch." + name in names, name
+        # a DAG through the port resolves every descriptor string it
+        # carries (a string naming tez_tpu would load it here)
+        import os, tempfile
+        from tez_tpu_torch.examples import ordered_wordcount
+        with tempfile.TemporaryDirectory() as d:
+            with open(os.path.join(d, "in.txt"), "w") as fh:
+                fh.write("b a b\\nc b a\\n" * 50)
+            for mode in ("simple", "vector"):
+                out = os.path.join(d, "out_" + mode)
+                state = ordered_wordcount.run(
+                    [os.path.join(d, "in.txt")], out,
+                    conf={"tez.staging-dir": os.path.join(d, "stg")},
+                    device="cpu", tokenizer_mode=mode)
+                assert state == "SUCCEEDED", state
+                with open(os.path.join(out, "part-00000")) as fh:
+                    assert fh.read() == "c\\t50\\na\\t100\\nb\\t150\\n"
         bad = [m for m in sys.modules
                if m == "tez_tpu" or m.startswith("tez_tpu.")
                or m == "jax" or m.startswith("jax.")]

@@ -1,4 +1,5 @@
-"""tez_tpu_torch: the PyTorch + CUDA port of tez_tpu's data plane.
+"""tez_tpu_torch: the PyTorch + CUDA port of tez_tpu: its data plane and,
+in local thread mode, its DAG runtime (client, AM, DAG API, text IO).
 
 The package mirrors tez_tpu's module names (``ops/device.py``,
 ``ops/sorter.py``, ...) so each counterpart is easy to find, but imports

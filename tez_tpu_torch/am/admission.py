@@ -1,0 +1,303 @@
+"""Admission control for the resident multi-tenant session AM.
+
+The reference session AM runs one DAG at a time and *rejects* a second
+submit outright (DAGAppMaster.submitDAGToAppMaster).  A resident service
+needs a real overload policy instead: every ``submit_dag`` gets one of
+three verdicts —
+
+ACCEPT
+    capacity is available now; the DAG starts immediately.
+QUEUE
+    the AM is at ``tez.am.session.max-concurrent-dags``; the submission
+    parks in a bounded FIFO and the submitter blocks until the queue
+    consumer promotes it.  The plan is journaled (``DAG_QUEUED``, a
+    summary event) *before* the submitter unblocks, so a crashed
+    consumer can never silently lose an accepted submission — the
+    lossless-admission contract.
+SHED
+    the queue is full or the tenant is over its in-flight cap.  The
+    verdict travels to the client as a typed
+    :class:`~tez_tpu_torch.client.errors.DAGRejectedError` carrying a
+    RETRY-AFTER hint — clients resubmit with full-jitter backoff
+    (TezClient.submit_dag_with_retry); nothing server-side remembers
+    the submission.
+
+Fairness (deficit round-robin over task-scheduler slots) and store byte
+quotas live elsewhere (task_scheduler.py, store/buffer_store.py); this
+module only decides *whether and when* a DAG may occupy the AM.  See
+docs/multitenancy.md for the full model.
+
+The port's copy of tez_tpu.am.admission: the verdicts, the FIFO consumer
+and the tenant caps.  The port has no buffer store (so no store-pressure
+gate), no SLO watchdog and no AM recovery (so no requeue or crash path).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import logging
+import threading
+from typing import Any, Dict, Optional
+
+from tez_tpu_torch.client.errors import DAGRejectedError
+from tez_tpu_torch.common import clock, config as C
+from tez_tpu_torch.common import faults, metrics
+from tez_tpu_torch.obs import flight as _flight
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class _QueuedSubmission:
+    """One parked submit: the submitter blocks on ``done`` until the
+    consumer resolves it with either a dag_id or an error."""
+    sub_id: str
+    plan: Any
+    tenant: str
+    enqueued_at: float
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    dag_id: Any = None
+    error: Optional[BaseException] = None
+
+
+class _TenantStats:
+    __slots__ = ("running", "queued", "accepted", "shed", "completed",
+                 "failed")
+
+    def __init__(self) -> None:
+        self.running = 0
+        self.queued = 0
+        self.accepted = 0
+        self.shed = 0
+        self.completed = 0
+        self.failed = 0
+
+    def inflight(self) -> int:
+        return self.running + self.queued
+
+    def to_dict(self) -> Dict[str, int]:
+        return {"running": self.running, "queued": self.queued,
+                "accepted": self.accepted, "shed": self.shed,
+                "completed": self.completed, "failed": self.failed}
+
+
+class AdmissionController:
+    """Accept/queue/shed verdicts + the FIFO queue consumer thread."""
+
+    def __init__(self, am: Any) -> None:
+        self._am = am
+        conf = am.conf
+        self.max_concurrent = max(
+            1, int(conf.get(C.AM_SESSION_MAX_CONCURRENT_DAGS) or 1))
+        self.queue_size = max(0, int(conf.get(C.AM_SESSION_QUEUE_SIZE) or 0))
+        self.tenant_max_inflight = int(
+            conf.get(C.AM_SESSION_TENANT_MAX_INFLIGHT) or 0)
+        self.retry_after_ms = float(
+            conf.get(C.AM_SESSION_SHED_RETRY_AFTER_MS) or 500.0)
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._queue: "collections.deque[_QueuedSubmission]" = \
+            collections.deque()
+        self._running = 0
+        self._tenants: Dict[str, _TenantStats] = {}
+        self._sub_seq = itertools.count(1)
+        self._draining: Optional[_QueuedSubmission] = None
+        self._stopped = False
+        self._consumer = threading.Thread(
+            target=self._consume, name=f"am-admit-{am.app_id}", daemon=True)
+        self._consumer.start()
+
+    # -- submit path (client-server / local-client threads) ------------------
+    def submit(self, plan: Any) -> Any:
+        tenant = str(getattr(plan, "tenant", "") or "")
+        with self._lock:
+            ts = self._tenants.setdefault(tenant, _TenantStats())
+            shed_reason = self._shed_reason_locked(tenant, ts, plan.name)
+            if shed_reason is not None:
+                ts.shed += 1
+                depth, inflight = len(self._queue), ts.inflight()
+                _flight.record(_flight.ADMIT, "shed", tenant,
+                               a=depth, b=inflight)
+            elif self._running < self.max_concurrent and not self._queue \
+                    and self._draining is None:
+                ts.accepted += 1
+                ts.running += 1
+                self._running += 1
+                sub = None
+                _flight.record(_flight.ADMIT, "accept", tenant,
+                               a=0, b=self._running)
+            else:
+                sub = _QueuedSubmission(
+                    sub_id=f"{self._am.app_id}-sub{next(self._sub_seq)}",
+                    plan=plan, tenant=tenant,
+                    enqueued_at=clock.mono_s())
+                ts.accepted += 1
+                ts.queued += 1
+                self._queue.append(sub)
+                self._cond.notify_all()
+                _flight.record(_flight.ADMIT, "queue", tenant,
+                               a=len(self._queue), b=self._running)
+            self._publish_gauges_locked()
+        if shed_reason is not None:
+            self._journal_shed(plan, tenant, shed_reason, depth, inflight)
+            # snapshot AFTER the slo tick so a shed-forced breach lands in
+            # the dump the acceptance assertions read
+            _flight.auto_dump("am.admit.shed", scope=tenant)
+            raise DAGRejectedError(
+                shed_reason, retry_after_s=self.retry_after_ms / 1000.0,
+                tenant=tenant, queue_depth=depth, tenant_inflight=inflight)
+        if sub is None:                       # ACCEPT: start inline
+            try:
+                return self._am._start_dag(plan, tenant)
+            except BaseException:
+                self._rollback_start(tenant)
+                raise
+        # QUEUE: journal the parked plan FIRST (summary event, fsync'd) so
+        # a consumer crash cannot silently drop it, then block.
+        from tez_tpu_torch.am.history import HistoryEvent, HistoryEventType
+        try:
+            self._am.history(HistoryEvent(
+                HistoryEventType.DAG_QUEUED, dag_id=sub.sub_id,
+                data={"dag_name": plan.name, "tenant": tenant,
+                      "plan": plan.serialize().hex()}))
+        except BaseException:
+            # un-journaled = not accepted: the lossless ledger only covers
+            # records that landed, so pull the park back out and re-raise
+            with self._lock:
+                try:
+                    self._queue.remove(sub)
+                    ts.queued -= 1
+                    ts.accepted -= 1
+                except ValueError:
+                    pass     # consumer already popped it; it may promote
+            raise
+        log.info("dag %s (tenant=%s): QUEUED as %s behind %d running",
+                 plan.name, tenant or "<anon>", sub.sub_id, self._running)
+        sub.done.wait()
+        if sub.error is not None:
+            raise sub.error
+        return sub.dag_id
+
+    def _shed_reason_locked(self, tenant: str, ts: _TenantStats,
+                            dag_name: str) -> Optional[str]:
+        try:
+            faults.fire("am.admit.shed", f"{tenant or '<anon>'}/{dag_name}")
+        except Exception as e:  # noqa: BLE001 — fault-forced verdict
+            return f"fault-injected shed: {e!r}"
+        if self.tenant_max_inflight > 0 and \
+                ts.inflight() >= self.tenant_max_inflight:
+            return (f"tenant over tez.am.session.tenant.max-inflight="
+                    f"{self.tenant_max_inflight}")
+        if self._running >= self.max_concurrent and \
+                len(self._queue) >= self.queue_size:
+            return (f"admission queue full "
+                    f"(tez.am.session.queue-size={self.queue_size})")
+        return None
+
+    def _rollback_start(self, tenant: str) -> None:
+        with self._lock:
+            self._running -= 1
+            ts = self._tenants.get(tenant)
+            if ts is not None:
+                ts.running -= 1
+                ts.failed += 1
+            self._cond.notify_all()
+            self._publish_gauges_locked()
+
+    def _journal_shed(self, plan: Any, tenant: str, reason: str,
+                      depth: int, inflight: int) -> None:
+        from tez_tpu_torch.am.history import HistoryEvent, HistoryEventType
+        self._am.history(HistoryEvent(
+            HistoryEventType.DAG_ADMISSION_SHED,
+            data={"dag_name": plan.name, "tenant": tenant, "reason": reason,
+                  "queue_depth": depth, "tenant_inflight": inflight,
+                  "retry_after_ms": self.retry_after_ms}))
+        log.warning("dag %s (tenant=%s): SHED (%s)", plan.name,
+                    tenant or "<anon>", reason)
+
+    # -- queue consumer -------------------------------------------------------
+    def _consume(self) -> None:
+        while True:
+            with self._lock:
+                self._cond.wait_for(
+                    lambda: self._stopped or (
+                        self._queue and self._running < self.max_concurrent))
+                if self._stopped:
+                    return
+                sub = self._queue.popleft()
+                ts = self._tenants.setdefault(sub.tenant, _TenantStats())
+                ts.queued -= 1
+                ts.running += 1
+                self._running += 1
+                self._draining = sub
+                self._publish_gauges_locked()
+            # fired OUTSIDE the lock and OUTSIDE any try: fail mode kills
+            # this thread mid-drain with `sub` popped but not yet started —
+            # the lossless-admission regression lever (the DAG_QUEUED ledger
+            # record is the submission's only surviving trace)
+            faults.fire("am.queue.delay", sub.sub_id)
+            try:
+                sub.dag_id = self._am._start_dag(
+                    sub.plan, sub.tenant, sub_id=sub.sub_id)
+            except BaseException as e:  # noqa: BLE001 — fail loudly, not drop
+                log.exception("queued dag %s failed to start", sub.sub_id)
+                sub.error = e
+                self._rollback_start(sub.tenant)
+            with self._lock:
+                self._draining = None
+                self._publish_gauges_locked()
+            metrics.observe("am.admit.queue_wait",
+                            (clock.mono_s() - sub.enqueued_at) * 1000.0)
+            sub.done.set()
+
+    # -- AM lifecycle hooks ---------------------------------------------------
+    def on_dag_finished(self, tenant: str, final_name: str,
+                        latency_ms: float) -> None:
+        tenant = tenant or ""
+        with self._lock:
+            self._running -= 1
+            ts = self._tenants.setdefault(tenant, _TenantStats())
+            ts.running -= 1
+            if final_name == "SUCCEEDED":
+                ts.completed += 1
+            else:
+                ts.failed += 1
+            self._cond.notify_all()
+            self._publish_gauges_locked()
+        # dynamic per-tenant name: decoded by chaos --tenant-storm and the
+        # counter_diff tenant section straight from the registry
+        metrics.observe(f"tenant.{tenant or 'default'}.dag.latency",
+                        latency_ms)
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+            parked = list(self._queue)
+            self._queue.clear()
+            self._cond.notify_all()
+        for sub in parked:
+            sub.error = RuntimeError(
+                f"AM stopping; queued submission {sub.sub_id} not started")
+            sub.done.set()
+        self._consumer.join(timeout=5.0)
+
+    def consumer_alive(self) -> bool:
+        return self._consumer.is_alive()
+
+    # -- observability --------------------------------------------------------
+    def status(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "max_concurrent_dags": self.max_concurrent,
+                "queue_size": self.queue_size,
+                "queue_depth": len(self._queue),
+                "running": self._running,
+                "consumer_alive": self._consumer.is_alive(),
+                "tenants": {t or "<anon>": ts.to_dict()
+                            for t, ts in sorted(self._tenants.items())},
+            }
+
+    def _publish_gauges_locked(self) -> None:
+        metrics.set_gauge("am.session.queue.depth", float(len(self._queue)))
+        metrics.set_gauge("am.session.running_dags", float(self._running))

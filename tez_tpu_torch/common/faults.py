@@ -18,8 +18,8 @@ Modes per rule:
 
 Rules are installed under a *scope* token, so concurrent users in one
 process don't interfere: each scope's rules come and go atomically and
-`clear(scope)` removes exactly its own.  (tez_tpu's ``install_from_conf``
-arms from a DAG conf; it comes with the port's AM, which arms per DAG.)
+`clear(scope)` removes exactly its own; the AM arms a DAG's rules from
+its conf (``install_from_conf``).
 
 Spec grammar (``tez.test.fault.spec``)::
 
@@ -86,6 +86,34 @@ KNOWN_POINTS: Dict[str, str] = {
         "observability point fired wherever a stale-WINDOW actor is "
         "rejected — the streaming generalization of fence.stale_epoch "
         "(umbilical, shuffle register/push/fetch, store publish)",
+    "am.heartbeat":
+        "am/task_comm.py heartbeat delivery (shared by local and umbilical "
+        "paths)",
+    "am.heartbeat.monitor":
+        "am/heartbeat.py liveness sweep (delay stalls failure detection)",
+    "am.container.launch":
+        "am/launcher.py runner/container startup",
+    "am.recovery.append":
+        "am/recovery.py journal append (before the write)",
+    "am.recovery.fsync":
+        "am/recovery.py journal fsync of summary events",
+    "commit.ledger.fsync":
+        "am/recovery.py fsync of a commit-ledger record (DAG_COMMIT_STARTED/"
+        "FINISHED/ABORTED) — fail mode crashes the AM between ledger states",
+    "commit.publish":
+        "io/file_output.py per-part-file publish inside commit_output "
+        "(detail = part filename; delay mode holds the commit mid-publish)",
+    "am.admit.shed":
+        "am/admission.py AdmissionController decision (detail = "
+        "tenant/dag name); fail mode forces the verdict to SHED with "
+        "RETRY-AFTER regardless of load — the tenant-storm chaos lever "
+        "for exercising client resubmit paths",
+    "am.queue.delay":
+        "am/admission.py queue consumer drain step (detail = queued "
+        "submission id); delay mode holds a parked submission before it "
+        "is promoted to submit, stretching queue latency; fail mode "
+        "crashes the consumer thread mid-drain (the lossless-admission "
+        "ledger regression lever)",
     "store.replica.lost":
         "shuffle/service.py consumer-side fetch chain (detail = "
         "path/spill); fail mode declares the PRIMARY copies lost — store "
@@ -318,6 +346,18 @@ def clear(scope: str) -> None:
 
 def clear_all() -> None:
     _PLANE.clear_all()
+
+
+def install_from_conf(conf, scope: str) -> bool:
+    """Arm the plane from ``tez.test.fault.*`` conf keys (AM submit path).
+    Returns True when rules were installed."""
+    from tez_tpu_torch.common import config as C
+    spec = conf.get(C.TEST_FAULT_SPEC)
+    if not spec:
+        return False
+    seed = int(conf.get(C.TEST_FAULT_SEED))
+    install(scope, parse_spec(spec), seed=seed)
+    return True
 
 
 def fire(point: str, detail: str = "") -> None:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 from tez_tpu_torch.obs import flight as _flight
 
@@ -30,6 +30,29 @@ def bucket_index(ms: float) -> int:
         return 0
     i = int(ms - 1e-9).bit_length()
     return i if i < len(BUCKET_BOUNDS_MS) else len(BUCKET_BOUNDS_MS)
+
+
+def quantile_from_buckets(counts: List[int], q: float) -> float:
+    """Estimate a quantile from per-bucket counts by linear interpolation
+    inside the winning bucket.  Overflow observations report the last
+    finite bound (a floor, same convention as Prometheus +Inf)."""
+    total = sum(counts)
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    seen = 0
+    for i, c in enumerate(counts):
+        if c <= 0:
+            continue
+        if seen + c >= rank:
+            if i >= len(BUCKET_BOUNDS_MS):          # +Inf bucket
+                return BUCKET_BOUNDS_MS[-1]
+            lo = BUCKET_BOUNDS_MS[i - 1] if i > 0 else 0.0
+            hi = BUCKET_BOUNDS_MS[i]
+            frac = (rank - seen) / c
+            return lo + (hi - lo) * min(1.0, max(0.0, frac))
+        seen += c
+    return BUCKET_BOUNDS_MS[-1]
 
 
 class Histogram:

@@ -4,9 +4,8 @@ Causal spans across threads and seams, with per-event timestamps.
 
 - Process-global plane, armed per scope with ``arm(scope)`` and released
   with ``clear(scope)``; arming is reference-counted by scope and the span
-  buffer survives disarm so post-run exporters can read it.  (tez_tpu's
-  ``install_from_conf`` arms from a DAG conf; it comes with the port's
-  config module.)
+  buffer survives disarm so post-run exporters can read it; the AM arms
+  a DAG's scope from its conf (``install_from_conf``).
 - Single-boolean disarmed fast path: every entry point checks the module
   flag ``_armed`` first and returns a shared no-op singleton, so a run
   that never arms tracing pays one attribute load per call and allocates
@@ -368,3 +367,17 @@ def clear_all() -> None:
 
 def snapshot() -> List[Span]:
     return _PLANE.snapshot()
+
+
+def install_from_conf(conf: Any, scope: str) -> bool:
+    """Arm the plane for one DAG when ``tez.trace.enabled`` is set.
+    Mirrors faults.install_from_conf: called from app_master.submit_dag
+    with scope=str(dag_id); the matching clear() happens in
+    on_dag_finished."""
+    from tez_tpu_torch.common import config as C
+    enabled = conf.get(C.TRACE_ENABLED)
+    if not (enabled is True or str(enabled) == "True"):
+        return False
+    capacity = int(conf.get(C.TRACE_BUFFER_SPANS))
+    _PLANE.install(scope, capacity)
+    return True

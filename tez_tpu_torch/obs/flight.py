@@ -11,8 +11,8 @@ wrong.
 - **Arming**: ``install(scope)`` arms the plane, scope-refcounted so
   concurrent owners compose; ``clear(scope)`` releases one.  The ring
   survives disarm so post-run snapshots still see the data;
-  ``clear_all()`` drops it.  (tez_tpu's ``install_from_conf`` arms from a
-  DAG conf; it comes with the port's config module.)
+  ``clear_all()`` drops it; the AM arms a DAG's scope from its conf
+  (``install_from_conf``).
 - **Binary ring, lock-free append**: events are fixed 44-byte records
   (``<qqIIIqq``: seq, t_ns, kind, name_id, scope_id, a, b) packed into a
   preallocated ``bytearray``.  The sequence counter is an
@@ -297,6 +297,23 @@ def auto_dump(reason: str, scope: str = "") -> Optional[str]:
     if not _armed:
         return None
     return _PLANE.dump(reason, scope)
+
+
+def install_from_conf(conf: Any, scope: str) -> bool:
+    """Arm from ``tez.obs.flight.*`` (AM submit path, the exact seam
+    tracing.install_from_conf uses).  Returns True when armed."""
+    from tez_tpu_torch.common import config as C
+    enabled = conf.get(C.OBS_FLIGHT_ENABLED)
+    if not (enabled is True or str(enabled) == "True"):
+        return False
+    _PLANE.install(
+        scope,
+        capacity=int(conf.get(C.OBS_FLIGHT_BUFFER_EVENTS) or
+                     DEFAULT_CAPACITY_EVENTS),
+        dump_dir=str(conf.get(C.OBS_FLIGHT_DUMP_DIR) or ""),
+        max_dumps=int(conf.get(C.OBS_FLIGHT_DUMP_MAX) or
+                      DEFAULT_MAX_DUMPS))
+    return True
 
 
 def load_dump(path: str) -> FlightSnapshot:

@@ -235,3 +235,11 @@ def local_shuffle_service() -> ShuffleService:
     local mode, exactly like the NM-singleton ShuffleHandler)."""
     return _local
 
+
+def telemetry_collector() -> Dict[str, float]:
+    """Live-telemetry hook (obs/timeseries registry): registered-run
+    inventory as gauges on every sampler tick — the transport plane's
+    resident footprint."""
+    n, nbytes = _local.stats()
+    return {"shuffle.registered_runs": float(n),
+            "shuffle.registered_bytes": float(nbytes)}

@@ -8,7 +8,9 @@ Run from the root of the repository, on a machine with one NVIDIA card:
 Phases, each checked, none allowed to fail:
 
 1. the card's name and power limit (nvidia-smi), then an nvcc build of
-   every kernel under tez_tpu_torch/csrc, all sources at once;
+   every kernel under tez_tpu_torch/csrc, all sources at once, and the
+   g++ build of the host library (tez_tpu_torch/native); the host's CPU
+   count and model;
 2. each kernel against its plain PyTorch version on the card, bit-exact,
    at the slice's shapes, with its time, the plain version's time, its
    memory-bound time and a yardstick computing the same function on these
@@ -19,6 +21,11 @@ Phases, each checked, none allowed to fail:
    of the same packing for the merge-path pair, which is also timed
    against the composite it replaced on the main path (two merge-rank
    launches and a scatter);
+2b. each binding of the host library (ops/native.py) against its plain
+   numpy version on the card's host, byte for byte, at the main path's
+   sizes (a 256 MiB tokenizer chunk of phase 11's corpus, 256 MB
+   gathers, phase 8's 64 MB span and four of its runs), both times
+   printed;
 3. map side: 4 producers, each a DeviceSorter(num_partitions=4,
    key_width=12, 256 MB spans) fed two full spans of bench-style records
    (12-byte Zipf(1.3) keys "w" + 11 digits over a 50k vocabulary, 8-byte
@@ -100,13 +107,16 @@ Phases, each checked, none allowed to fail:
    each vertex's span from the AM's history, the AM's share of the wall
    and bench.py's four counters are printed.
 
-Kernel launch counts are zeroed before each path of phases 3-6 and 8-11
-and read after it: each TPU kernel's counterpart on the path must have
-been launched, and the general-query merge rank, which the main path no
-longer calls, not at all; the JSON line reports their sum over phases
-3-6 and 8-11.  The
-last two lines are one JSON object of per-kernel numbers and {"ok": true,
-"device": {...}}.  Without a card the script exits non-zero before
+Kernel launch counts and the host library's call counts are zeroed
+before each path of phases 3-11 and read after it: each TPU kernel's
+counterpart on the path must have been launched, and the general-query
+merge rank, which the main path no longer calls, not at all; the
+precombine of phase 6 must call hash_sum_i64, every host merge pass of
+phases 8-10 tz_merge_emit or tz_merge_runs, phase 11's combining leg the
+word-count aggregator (tz_wc_feed) and its other leg tz_split_ws.  The
+kernels' JSON line reports their launches over phases 3-6 and 8-11; the
+line before it, {"native": ...}, the library's calls by phase and phase
+2b's times.  The last line is {"ok": true, "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
 other CTA shapes and splits both kernels' time by launch.
 """
@@ -549,6 +559,156 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the host library against its plain versions
+# ---------------------------------------------------------------------------
+#: phase 2b's sizes: a tokenizer's 256 MiB chunk of phase 11's corpus
+#: layout, phase 8's 64 MB span and four of its runs, 256 MB gathers
+NATIVE_SIZES = dict(chunk_mb=256, span_mb=SPILL_SPAN_MB, runs=4,
+                    gather_mb=256, vocab_size=SPILL_VOCAB)
+TINY_NATIVE = dict(chunk_mb=2, span_mb=1, runs=3, gather_mb=2,
+                   vocab_size=20_000)
+
+
+def cpu_model() -> str:
+    """The host CPU as lscpu names it: model name, family and model
+    numbers, architecture."""
+    import platform
+    fields = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        fields = dict(line.split(":", 1) for line in out.splitlines()
+                      if ":" in line)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    get = {k.strip(): v.strip() for k, v in fields.items()}.get
+    return (f"{get('Model name', 'model name not reported')}, family "
+            f"{get('CPU family', '?')} model {get('Model', '?')}, "
+            f"{platform.machine()}")
+
+
+def same_arrays(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(same_arrays, a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def native_phase(args, **sizes) -> list:
+    """Phase 2b: every binding of the host library against its plain numpy
+    version on this host, byte for byte, at the main path's sizes; the
+    plain version timed once, the library's median of three calls.
+    Returns one row a binding."""
+    from tez_tpu_torch.ops import native
+    sz = dict(NATIVE_SIZES, **sizes)
+    rng = np.random.default_rng(args.seed + 12)
+    mat, lens = bulk_word_vocab(rng, sz["vocab_size"])
+    with tempfile.TemporaryDirectory(prefix="tez_native_") as root:
+        path = os.path.join(root, "chunk.txt")
+        write_corpus(path, rng, mat, lens, int(sz["chunk_mb"] * (1 << 20)))
+        with open(path, "rb") as fh:
+            chunk = fh.read()
+    rows = []
+
+    def hold(name: str, shape: str, run, plain):
+        t0 = time.perf_counter()
+        want = plain()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = run()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(same_arrays(got, want),
+              f"host library {name}: differs from its plain version")
+        row = {"name": name, "shape": shape,
+               "native_ms": round(sorted(times)[1], 3),
+               "plain_ms": round(plain_ms, 3)}
+        log(f"host library {name} ({shape}): {row['native_ms']} ms, plain "
+            f"{row['plain_ms']} ms, equal")
+        rows.append(row)
+        return got
+
+    def word_count():
+        agg = native.WordCountAggregator()
+        try:
+            agg.feed(chunk)
+            return agg.emit()
+        finally:
+            agg.close()
+
+    text = f"{len(chunk)} bytes of text"
+    wb, wo = hold("split_ws", text, lambda: native.split_ws_native(chunk),
+                  lambda: native.split_ws_plain(chunk))
+    n = len(wo) - 1
+    hold("word_count", text, word_count,
+         lambda: native.word_count_plain([chunk]))
+    ones = np.ones(n, np.int64)
+    hold("hash_sum", f"{n} words", lambda: native.hash_sum_native(
+        wb, wo, ones), lambda: native.hash_sum_plain(wb, wo, ones))
+    # 256 MB gathers: ragged words, and fixed 8-byte rows
+    g = int(sz["gather_mb"] * 1e6)
+    cut = int(np.searchsorted(wo, min(g, int(wo[-1]))))
+    gb, go = wb[:int(wo[cut])], wo[:cut + 1]
+    perm = rng.permutation(cut)
+    hold("gather_ragged", f"{cut} rows, {len(gb)} bytes",
+         lambda: native.gather_ragged_native(gb, go, perm),
+         lambda: native.gather_ragged_plain(gb, go, perm))
+    fixed = rng.integers(0, 256, g // 8 * 8, dtype=np.uint8)
+    fperm = rng.permutation(g // 8)
+    hold("gather_fixed", f"{g // 8} rows of 8 bytes",
+         lambda: native.gather_fixed_native(fixed, 8, fperm),
+         lambda: native.gather_fixed_plain(fixed, 8, fperm))
+    del wb, wo, ones, gb, go, perm, fixed, fperm, chunk
+    # phase 8's spans: the host engine's partition, sort and fused sort
+    span_bytes = int(sz["span_mb"] * (1 << 20))
+    spans, _ids = indexed_word_batches(rng, mat, lens, span_bytes,
+                                       spans=sz["runs"])
+    b = spans[0]
+    kb, ko, vb, vo = b.key_bytes, b.key_offsets, b.val_bytes, b.val_offsets
+    shape = f"{b.num_records} records, {len(kb) + len(vb)} bytes of KV"
+    parts = hold("fnv32_partition", shape,
+                 lambda: native.fnv32_partition_native(kb, ko,
+                                                       NUM_PARTITIONS),
+                 lambda: native.fnv32_partition_plain(kb, ko,
+                                                      NUM_PARTITIONS))
+    hold("sort_partition_keys", shape,
+         lambda: native.sort_partition_keys_native(kb, ko, parts),
+         lambda: native.sort_partition_keys_plain(kb, ko, parts))
+    skb, sko, *_ = hold(
+        "span_sort_emit", shape,
+        lambda: native.span_sort_emit_native(kb, ko, vb, vo, NUM_PARTITIONS,
+                                             None, True),
+        lambda: native.span_sort_emit_plain(kb, ko, vb, vo, NUM_PARTITIONS,
+                                            None, True))
+    slen = np.diff(sko)
+    cand = np.flatnonzero(slen[1:] == slen[:-1])
+    hold("adjacent_equal", f"{len(cand)} pairs",
+         lambda: native.adjacent_equal_native(skb, sko, cand),
+         lambda: native.adjacent_equal_plain(skb, sko, cand))
+    # phase 8's runs: the host engine's merges
+    runs = [native.span_sort_emit_native(
+        s.key_bytes, s.key_offsets, s.val_bytes, s.val_offsets,
+        NUM_PARTITIONS, None, True) for s in spans]
+    del spans
+    records = sum(len(r[1]) - 1 for r in runs)
+    shape = f"{len(runs)} runs, {records} records"
+    hold("merge_emit", shape,
+         lambda: native.merge_emit_native(runs, NUM_PARTITIONS),
+         lambda: native.merge_emit_plain(runs, NUM_PARTITIONS))
+    from tez_tpu_torch.ops.runformat import concat_ragged
+    ckb, cko = concat_ragged([(r[0], r[1]) for r in runs])
+    cparts = np.concatenate([np.repeat(np.arange(NUM_PARTITIONS,
+                                                 dtype=np.int32),
+                                       np.diff(r[4])) for r in runs])
+    bounds = np.zeros(len(runs) + 1, np.int64)
+    np.cumsum([len(r[1]) - 1 for r in runs], out=bounds[1:])
+    hold("merge_runs", shape,
+         lambda: native.merge_runs_native(ckb, cko, cparts, bounds),
+         lambda: native.merge_runs_plain(ckb, cko, cparts, bounds))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 3-6: the slice
 # ---------------------------------------------------------------------------
 def span_records(span_bytes: int) -> int:
@@ -602,24 +762,35 @@ class Phase:
         return False
 
 
+#: calls into the host library, summed over the paths since main() last
+#: cleared it (a phase's share)
+NATIVE_TOTALS: collections.Counter = collections.Counter()
+
+
 class Launches:
-    """Kernel launches of one path: the counts are zeroed just before it
-    runs and read just after; `totals` sums the paths of the slice."""
+    """Kernel launches and host-library calls of one path: the counts are
+    zeroed just before it runs and read just after; `totals` sums the
+    kernel launches of the phase's paths, NATIVE_TOTALS their calls into
+    the host library."""
 
     def __init__(self, name: str, totals: collections.Counter):
         self.name, self.totals = name, totals
 
     def __enter__(self):
-        from tez_tpu_torch.ops import kernels
+        from tez_tpu_torch.ops import kernels, native
         kernels.reset_launches()
+        native.reset_calls()
         return self
 
     def __exit__(self, exc_type, *_):
-        from tez_tpu_torch.ops import kernels
+        from tez_tpu_torch.ops import kernels, native
         self.counts = dict(kernels.launches)
+        self.native = {k: v for k, v in native.calls.items() if v}
         if exc_type is None:
             self.totals.update(self.counts)
-            log(f"launches {self.name}: {json.dumps(self.counts)}")
+            NATIVE_TOTALS.update(self.native)
+            log(f"launches {self.name}: {json.dumps(self.counts)} "
+                f"host library {json.dumps(self.native)}")
         return False
 
     def require(self, device, *names) -> None:
@@ -632,6 +803,19 @@ class Launches:
                   f"{self.name}: {kname} was never launched")
         check(self.counts["merge_rank"] == 0,
               f"{self.name}: launched merge_rank")
+
+    def require_native(self, *names) -> None:
+        """The path called at least one of the named host-library
+        functions (on any device: the library runs on the host)."""
+        check(sum(self.native.get(n, 0) for n in names) > 0,
+              f"{self.name}: the host library's {' / '.join(names)} never "
+              f"ran")
+
+    def require_host_merges(self, host_rounds: int) -> None:
+        """Merge passes routed to the host engine ran in the host
+        library."""
+        if host_rounds:
+            self.require_native("tz_merge_emit", "tz_merge_runs")
 
 
 def is_cuda(device) -> bool:
@@ -949,6 +1133,7 @@ def slice_phases(args, device="cuda") -> dict:
         final = sum_long_combiner(merge_sorted_runs(
             runs, NUM_PARTITIONS, 16, device=device))
     ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+    ln.require_native("hash_sum_i64")
     check_fault_free("combiner", pipelines, [counters])
     cin = counters.find_counter(TaskCounter.COMBINE_INPUT_RECORDS).value
     cout = counters.find_counter(TaskCounter.COMBINE_OUTPUT_RECORDS).value
@@ -991,7 +1176,7 @@ def containment_phase(args, device="cuda", hang_ms: int = 60_000,
     the kernel launches of the phase."""
     from tez_tpu_torch.common import faults
     from tez_tpu_torch.common.counters import TezCounters
-    from tez_tpu_torch.ops import kernels
+    from tez_tpu_torch.ops import kernels, native
     from tez_tpu_torch.ops.async_stage import (CircuitBreaker,
                                                reset_process_breaker)
     from tez_tpu_torch.ops.sorter import DeviceSorter
@@ -1010,6 +1195,7 @@ def containment_phase(args, device="cuda", hang_ms: int = 60_000,
             faults.install("smoke", faults.parse_spec(spec))
         counters = TezCounters()
         kernels.reset_launches()
+        native.reset_calls()
         t0 = time.perf_counter()
         s = DeviceSorter(num_partitions=NUM_PARTITIONS, key_width=12,
                          span_budget_bytes=span_bytes, engine="device",
@@ -1024,6 +1210,7 @@ def containment_phase(args, device="cuda", hang_ms: int = 60_000,
         wall = time.perf_counter() - t0
         faults.clear_all()
         phase_launches.update(kernels.launches)
+        NATIVE_TOTALS.update({k: v for k, v in native.calls.items() if v})
         fo = failover_counters(counters)
         log(f"containment {label}: wall_s={wall:.3f} spec={spec!r} "
             f"stats={json.dumps(pipe.stats.to_dict())} "
@@ -1310,6 +1497,7 @@ def spill_phase(args, device="cuda", producers: int = 4,
                     spill_producer(batches, span_bytes, device, root,
                                label=label)
             ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+            ln.require_host_merges(probe.rounds["host"])
             del batches
             got = check_spill_counters(label, fr, counters, spill_dir,
                                        probe, n)
@@ -1331,7 +1519,9 @@ def spill_phase(args, device="cuda", producers: int = 4,
                 f"({probe.rounds['device_records']} records), on the host "
                 f"{probe.rounds['host']} ({probe.rounds['host_records']} "
                 f"records); merge_path_pair launches "
-                f"{ln.counts['merge_path_pair']}")
+                f"{ln.counts['merge_path_pair']}; host library merges "
+                f"tz_merge_emit {ln.native.get('tz_merge_emit', 0)} "
+                f"tz_merge_runs {ln.native.get('tz_merge_runs', 0)}")
             # golden: a stable order by (partition, key) over vocabulary ranks
             t0 = time.perf_counter()
             order = np.argsort(rank[ids].astype(np.int32), kind="stable")
@@ -1605,6 +1795,7 @@ class MergeLeg:
             + "; ".join(f"histogram {h} count={c} sum_ms={m:.3f}"
                         for h, (c, m) in dh.items()))
         self.launches.require(self.device, *self.names)
+        self.launches.require_host_merges(p.rounds["host"])
         return False
 
 
@@ -2594,6 +2785,7 @@ def task_phase(args, device="cuda", **sizes) -> dict:
                 f"{total(rc, TC.SHUFFLE_BYTES_DISK_DIRECT)}); mem-to-disk "
                 f"merges {total(rc, TC.NUM_MEM_TO_DISK_MERGES)}")
             launches.require(device, "fnv_hash_lanes", "merge_path_pair")
+            launches.require_host_merges(probe.rounds["host"])
     for leg in ("B", "C"):
         check(digests[leg] == digests["A"],
               f"tasks {leg}: reducer output differs from leg A's")
@@ -2935,6 +3127,13 @@ def dag_phase(args, device="cuda", **sizes) -> dict:
                 f"disk bytes {json.dumps(disk)}; peak device memory "
                 f"{peak:.3f} GiB")
             launches.require(device, "fnv_hash_lanes", "merge_path_pair")
+            # tez_tpu's defaults: the combining tokenizer counts words in
+            # the library's aggregator, the other splits in the library
+            launches.require_native("tz_wc_feed" if shape["combine"]
+                                    else "tz_split_ws")
+            check(launches.native.get("tz_wc_feed", 0) == 0
+                  or shape["combine"], f"{label}: the aggregator ran "
+                                       f"without the combiner")
     check(parts["A"] == parts["B"], "dag B: part file differs from leg A's")
     log("dag: legs A-B passed")
     return dict(totals)
@@ -2998,8 +3197,25 @@ def main(argv=None) -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {kname}: {line.strip()}")
+    host = _build.build_host()
+    log(f"build: {host['seconds']:.3f} s for the host library "
+        f"{os.path.basename(host['path'])} (g++)")
+    nproc = os.cpu_count()
+    log(f"host: {nproc} CPUs (nproc), {cpu_model()}")
 
     rows = kernel_phase(args.seed, memory_tb_s(name), args.tile_sweep)
+    t0 = time.perf_counter()
+    native_rows = native_phase(args)
+    log(f"host library: {time.perf_counter() - t0:.3f} s")
+    native_calls = {}
+
+    def phase_native(phase: str) -> str:
+        """Take the phase's host-library calls out of NATIVE_TOTALS."""
+        native_calls[phase] = dict(NATIVE_TOTALS)
+        NATIVE_TOTALS.clear()
+        return json.dumps(native_calls[phase])
+
+    NATIVE_TOTALS.clear()
     t0 = time.perf_counter()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -3010,30 +3226,35 @@ def main(argv=None) -> int:
     else:
         launches = slice_phases(args)
     log(f"slice: {time.perf_counter() - t0:.3f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, host "
+        f"library {phase_native('slice')}")
     t0 = time.perf_counter()
     fault_launches = containment_phase(args)
     log(f"containment: {time.perf_counter() - t0:.3f} s, launches "
-        f"{json.dumps(fault_launches)}")
+        f"{json.dumps(fault_launches)}, host library "
+        f"{phase_native('containment')}")
     t0 = time.perf_counter()
     spill_launches = spill_phase(args)
     log(f"spill: {time.perf_counter() - t0:.3f} s, launches "
-        f"{json.dumps(spill_launches)}")
+        f"{json.dumps(spill_launches)}, host library "
+        f"{phase_native('spill')}")
     t0 = time.perf_counter()
     log(f"merge phase on {card}")
     merge_launches = merge_phase(args)
     log(f"merge: {time.perf_counter() - t0:.3f} s, launches "
-        f"{json.dumps(merge_launches)}")
+        f"{json.dumps(merge_launches)}, host library "
+        f"{phase_native('merge')}")
     t0 = time.perf_counter()
     log(f"task phase on {card}")
     task_launches = task_phase(args)
     log(f"tasks: {time.perf_counter() - t0:.3f} s, launches "
-        f"{json.dumps(task_launches)}")
+        f"{json.dumps(task_launches)}, host library "
+        f"{phase_native('tasks')}")
     t0 = time.perf_counter()
     log(f"dag phase on {card}")
     dag_launches = dag_phase(args)
     log(f"dag: {time.perf_counter() - t0:.3f} s, launches "
-        f"{json.dumps(dag_launches)}")
+        f"{json.dumps(dag_launches)}, host library {phase_native('dag')}")
     launches = collections.Counter(launches)
     launches.update(spill_launches)
     launches.update(merge_launches)
@@ -3055,6 +3276,9 @@ def main(argv=None) -> int:
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)
+    log(json.dumps({"native": {"nproc": nproc, "cpu": cpu_model(),
+                               "calls": native_calls,
+                               "bindings": native_rows}}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

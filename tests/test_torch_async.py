@@ -924,26 +924,28 @@ def _hash_sum_cases():
 
 @pytest.mark.parametrize("case", [c[0] for c in _hash_sum_cases()])
 def test_hash_sum_native_matches_tez_tpu(case):
-    """The port's numpy hash_sum_native against tez_tpu's C++ one:
-    first-occurrence order, int64 sums that wrap, bit for bit."""
+    """The port's hash_sum_native (its host library) and its plain numpy
+    version against tez_tpu's C++ one: first-occurrence order, int64 sums
+    that wrap, bit for bit."""
     from tez_tpu.ops.native import hash_sum_native as jsum
-    from tez_tpu_torch.ops.native import hash_sum_native
+    from tez_tpu_torch.ops.native import hash_sum_native, hash_sum_plain
     _name, keys, vals = next(c for c in _hash_sum_cases() if c[0] == case)
     kb, ko = _ragged(keys)
     vals = np.asarray(vals, dtype=np.int64)
-    got = hash_sum_native(kb, ko, vals)
     want = jsum(kb, ko, vals)
     if want is None:
         pytest.skip("tez_tpu's native library is missing; the dict "
                     "reference case covers the port alone")
-    for g, w in zip(got, want):
-        assert g.dtype == np.int64
-        np.testing.assert_array_equal(g, w)
+    for got in (hash_sum_native(kb, ko, vals), hash_sum_plain(kb, ko, vals)):
+        for g, w in zip(got, want):
+            assert g.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
 
 
 def test_hash_sum_native_exact_when_hashes_collide(monkeypatch):
-    """Distinct keys that share a row hash are still told apart (the exact
-    regrouping), against a dict reference with wrapping int64 sums."""
+    """Distinct keys that share a row hash are still told apart by the
+    plain version (its exact regrouping) and by the host library, against
+    a dict reference with wrapping int64 sums."""
     from tez_tpu_torch.ops import native
     monkeypatch.setattr(native, "_row_hashes",
                         lambda words, lengths: np.zeros(len(lengths),
@@ -952,14 +954,15 @@ def test_hash_sum_native_exact_when_hashes_collide(monkeypatch):
     keys = [bytes(rng.integers(97, 99, int(rng.integers(0, 12)))
                   .astype(np.uint8)) for _ in range(800)]
     vals = rng.integers(-2 ** 62, 2 ** 62, 800) * 3
-    first, sums = native.hash_sum_native(*_ragged(keys), vals)
     ref = {}
     for i, (k, v) in enumerate(zip(keys, vals)):
         f, s = ref.get(k, (i, 0))
         ref[k] = (f, (s + int(v) + 2 ** 63) % 2 ** 64 - 2 ** 63)
     want = sorted(ref.values())
-    np.testing.assert_array_equal(first, [f for f, _ in want])
-    np.testing.assert_array_equal(sums, [s for _, s in want])
+    for fn in (native.hash_sum_plain, native.hash_sum_native):
+        first, sums = fn(*_ragged(keys), vals)
+        np.testing.assert_array_equal(first, [f for f, _ in want])
+        np.testing.assert_array_equal(sums, [s for _, s in want])
 
 
 def test_precombine_counters_match_tez_tpu():

@@ -10,14 +10,13 @@ part files byte for byte, the final states, the untimed DAG counters,
 each entity's sequence of history event types and the decoded lines of
 the recovery journal.
 
-tez_tpu's vectorised tokenizer feeds its native word-count aggregator
-whenever libtezhost.so loads and the edge combines; the port has no
-native host library yet and takes the numpy split path.  The output is
-the same either way, the tokenizer's counters are not, so counters are
-compared with tez_tpu's aggregator switched off (in the test only), and
-one case with it on compares the part files alone.  The rest of tez_tpu's
-native library stays on: the port's numpy precombine is the counterpart
-of its hash_sum_native, which tez_tpu skips without the library.
+Both packages run at tez_tpu's defaults, each on its own host library:
+the vectorised tokenizer feeds the word-count aggregator when the edge
+combines with the sum combiner and splits with tz_split_ws otherwise, and
+the precombine, the host engine's span sorts and merges and the large
+gathers call the library in both.  Counters are compared with every part
+of both libraries on; a spy on the port's library shows which of its
+functions a case ran.
 
 Which spans spill follows their completion order, and which batches a
 merge takes follows the commits' race with the merger, so both packages
@@ -119,16 +118,18 @@ def corpus(tmp_path, files, words, seed=0):
 
 class KernelSpy:
     """Calls of the port's two kernels' wrappers (on the CPU, their plain
-    versions)."""
+    versions), and the calls into the port's host library."""
 
     def __init__(self, monkeypatch):
-        from tez_tpu_torch.ops import kernels
+        from tez_tpu_torch.ops import kernels, native
         self.calls = dict.fromkeys(("fnv_hash_lanes", "merge_path_pair"), 0)
         for name in self.calls:
             def spy(*a, _real=getattr(kernels, name), _name=name, **kw):
                 self.calls[_name] += 1
                 return _real(*a, **kw)
             monkeypatch.setattr(kernels, name, spy)
+        native.reset_calls()
+        self.native = native.calls
 
 
 def run_case(tmp_path, root, desc_kw, conf, paths):
@@ -152,8 +153,6 @@ def untimed(counters):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_ordered_wordcount_matches_tez_tpu(tmp_path, monkeypatch, case):
     desc_kw, conf, files, words = CASES[case]
-    monkeypatch.setattr(jnative.WordCountAggregator, "create",
-                        staticmethod(lambda: None))
     spy = KernelSpy(monkeypatch)
     paths = corpus(tmp_path, files, words)
     (t, t_parts, t_ok), (j, j_parts, j_ok) = (
@@ -164,12 +163,20 @@ def test_ordered_wordcount_matches_tez_tpu(tmp_path, monkeypatch, case):
     assert untimed(t.counters) == untimed(j.counters)
     assert spy.calls["fnv_hash_lanes"] > 0 and \
         spy.calls["merge_path_pair"] > 0
+    vector = desc_kw.get("tokenizer_mode") == "vector"
+    combine = desc_kw.get("combine", True)
+    # the aggregator feeds each combining vector tokenizer; the split
+    # feeds the others
+    assert (spy.native["tz_wc_feed"] > 0) == (vector and combine)
+    assert (spy.native["tz_split_ws"] > 0) == (vector and not combine)
 
 
 def test_ordered_wordcount_matches_tez_tpu_with_its_native_library(
         tmp_path):
-    """tez_tpu's tokenizer on its native aggregator (where libtezhost.so
-    loads), the port's on numpy: the same part files."""
+    """Both tokenizers on their own native word-count aggregators
+    (tez_tpu's libtezhost.so loads here, as its tier-1 tests need): the
+    same part files."""
+    assert jnative.native_available()
     paths = corpus(tmp_path, 1, 6000)
     parts = [run_case(tmp_path, root, dict(tokenizer_mode="vector"), {},
                       paths)[1] for root in ROOTS]
@@ -321,12 +328,10 @@ def test_failing_processors_match_tez_tpu(tmp_path, processor, parallelism,
 
 
 # -- (d) history and the recovery journal ------------------------------------
-def test_history_and_journal_match_tez_tpu(tmp_path, monkeypatch):
+def test_history_and_journal_match_tez_tpu(tmp_path):
     """Each entity's history event types, in order, are the same in both
     packages; every journal line decodes in both packages to the same
     event, and the journal holds each entity's history in order."""
-    monkeypatch.setattr(jnative.WordCountAggregator, "create",
-                        staticmethod(lambda: None))
     paths = corpus(tmp_path, 1, 6000)
     runs = {root: run_case(tmp_path, root, {}, {}, paths)[0]
             for root in ROOTS}

@@ -9,10 +9,11 @@ big-endian long serde so numeric order == byte order.
 
 The port's copy of tez_tpu.examples.ordered_wordcount: ``run(...,
 device="cuda")`` submits the DAG through the port's own TezClient and AM,
-whose tasks sort and merge on the card.  The vectorised tokenizer takes the
-numpy split path (the port has no native host library yet), and
-``exchange="mesh"`` raises NotImplementedError until the mesh exchange is
-ported.
+whose tasks sort and merge on the card.  The vectorised tokenizer runs on
+the host library (ops/native.py) as tez_tpu's does: its word-count
+aggregator when the edge combines with the sum combiner, its whitespace
+split otherwise.  ``exchange="mesh"`` raises NotImplementedError until the
+mesh exchange is ported.
 """
 from __future__ import annotations
 
@@ -45,34 +46,45 @@ class TokenProcessor(SimpleProcessor):
 
 
 class VectorTokenProcessor(SimpleProcessor):
-    """Batch-first tokenizer: numpy whitespace split over large line-aligned
-    chunks, records shipped as pre-serialized KVBatches (write_batch) — no
-    per-record Python on the hot path.  This is the batch-first shape of
-    the reference's per-record map loop (the bench path)."""
+    """Batch-first tokenizer over large line-aligned chunks, records shipped
+    as pre-serialized KVBatches (write_batch): no per-record Python on the
+    hot path.  This is the batch-first shape of the reference's per-record
+    map loop (the bench path)."""
 
     def run(self, inputs: Dict[str, LogicalInput],
             outputs: Dict[str, LogicalOutput]) -> None:
         import numpy as np
+        from tez_tpu_torch.ops import native
         from tez_tpu_torch.ops.runformat import KVBatch
-        from tez_tpu_torch.ops.serde import VarLongSerde
+        from tez_tpu_torch.ops.serde import VarLongSerde, encode_longs_be
+        from tez_tpu_torch.ops.sorter import sum_long_combiner
 
-        one = VarLongSerde().to_bytes(1)
         reader = inputs["input"].get_reader()
         writer = outputs["summation"].get_writer()
+        sorter = getattr(outputs["summation"], "sorter", None)
+        if sorter is not None and sorter.combiner is sum_long_combiner:
+            # fused tokenize and count: the task emits the partial counts
+            # the combiner would have produced, one record a distinct word
+            agg = native.WordCountAggregator()
+            try:
+                for chunk in reader.iter_chunks():
+                    agg.feed(chunk)
+                key_bytes, key_offsets, counts = agg.emit()
+            finally:
+                agg.close()
+            # the keys are unique already: a single-span sort skips its
+            # precombine
+            writer.write_batch(KVBatch(
+                key_bytes, key_offsets, encode_longs_be(counts),
+                np.arange(len(counts) + 1, dtype=np.int64) * 8,
+                pre_combined=True))
+            return
+        one = VarLongSerde().to_bytes(1)
         for chunk in reader.iter_chunks():
-            data = np.frombuffer(chunk, dtype=np.uint8)
-            # full bytes.split() whitespace set: space \t \n \v \f \r
-            ws = (data == 32) | ((data >= 9) & (data <= 13))
-            sel = ~ws
-            if not sel.any():
+            key_bytes, key_offsets = native.split_ws_native(chunk)
+            n = len(key_offsets) - 1
+            if n == 0:
                 continue
-            key_bytes = data[sel].copy()
-            starts_mask = sel & np.concatenate(([True], ws[:-1]))
-            run_id = np.cumsum(starts_mask)[sel]    # 1-based word id
-            lengths = np.bincount(run_id - 1)
-            n = len(lengths)
-            key_offsets = np.zeros(n + 1, np.int64)
-            np.cumsum(lengths, out=key_offsets[1:])
             val_bytes = np.frombuffer(one * n, dtype=np.uint8).copy()
             val_offsets = np.arange(n + 1, dtype=np.int64) * len(one)
             writer.write_batch(KVBatch(key_bytes, key_offsets,
@@ -188,8 +200,8 @@ def build_dag(input_paths, output_path: str, tokenizer_parallelism: int = -1,
               summation_parallelism: int = 2, sorter_parallelism: int = 1,
               combine: bool = True, pipelined: bool = False,
               exchange: str = "host", tokenizer_mode: str = "simple") -> DAG:
-    """tokenizer_mode="vector" uses the batch-first numpy tokenizer (the
-    bench path).  exchange="mesh" (tez_tpu's device-mesh exchange of the
+    """tokenizer_mode="vector" uses the batch-first tokenizer (the bench
+    path).  exchange="mesh" (tez_tpu's device-mesh exchange of the
     first edge) is not ported yet and raises NotImplementedError."""
     if exchange != "host":
         raise NotImplementedError(

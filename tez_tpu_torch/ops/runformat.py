@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from tez_tpu_torch.common import faults
+from tez_tpu_torch.ops import native
 from tez_tpu_torch.ops.device import resolve_device
 
 MAGIC = b"TPRUN1"
@@ -91,17 +92,28 @@ def gather_ragged(data: np.ndarray, offsets: np.ndarray,
                   perm: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Permute a ragged array: returns (new_data, new_offsets).
 
-    Fixed-width rows take a reshape-and-index fast path; the generic path
-    builds one int64 index per byte, which at span scale costs 8x the data
-    in memory."""
+    From MIN_NATIVE_BYTES of data the host library copies rows on several
+    threads (fixed-width rows of up to 64 bytes through gather_fixed_u8,
+    others through gather_ragged_u8); smaller arrays take numpy, where a
+    thread spawn would cost more than the copy (tez_tpu's routing)."""
     n_src = len(offsets) - 1
-    if n_src > 0:
-        w = int(offsets[1]) - int(offsets[0])
-        if w > 0 and int(offsets[-1]) == n_src * w and \
-                not bool((offsets[1:] != offsets[:-1] + w).any()):
-            fixed = data[:n_src * w].reshape(n_src, w)[perm]
-            return fixed.reshape(-1), np.arange(len(perm) + 1,
-                                                dtype=np.int64) * w
+    w = int(offsets[1]) - int(offsets[0]) if n_src > 0 else 0
+    fixed = w > 0 and int(offsets[-1]) == n_src * w and \
+        not bool((offsets[1:] != offsets[:-1] + w).any())
+    if data.nbytes >= native.MIN_NATIVE_BYTES:
+        if fixed and w <= 64:
+            return (native.gather_fixed_native(data, w, perm),
+                    np.arange(len(perm) + 1, dtype=np.int64) * w)
+        return native.gather_ragged_native(data, offsets, perm)
+    if fixed:
+        return (data[:n_src * w].reshape(n_src, w)[perm].reshape(-1),
+                np.arange(len(perm) + 1, dtype=np.int64) * w)
+    return _gather_ragged_numpy(data, offsets, perm)
+
+
+def _gather_ragged_numpy(data: np.ndarray, offsets: np.ndarray,
+                         perm: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """gather_ragged in numpy: one int64 index a byte."""
     lengths = offsets[1:] - offsets[:-1]
     new_lengths = lengths[perm]
     new_offsets = np.zeros(len(perm) + 1, dtype=np.int64)
@@ -113,10 +125,20 @@ def gather_ragged(data: np.ndarray, offsets: np.ndarray,
 def adjacent_equal_rows(data: np.ndarray, offsets: np.ndarray,
                         cand: np.ndarray) -> np.ndarray:
     """For each candidate row i (rows i and i+1 have equal byte length),
-    True where row i's bytes equal row i+1's."""
-    m = len(cand)
-    if m == 0:
+    True where row i's bytes equal row i+1's.  From MIN_NATIVE_BYTES of
+    compared bytes a threaded memcmp in the host library; numpy below."""
+    if len(cand) == 0:
         return np.zeros(0, dtype=bool)
+    if int((offsets[1:] - offsets[:-1])[cand].sum()) >= \
+            native.MIN_NATIVE_BYTES:
+        return native.adjacent_equal_native(data, offsets, cand)
+    return _adjacent_equal_numpy(data, offsets, cand)
+
+
+def _adjacent_equal_numpy(data: np.ndarray, offsets: np.ndarray,
+                          cand: np.ndarray) -> np.ndarray:
+    """adjacent_equal_rows in numpy: one int64 index a compared byte."""
+    m = len(cand)
     lengths = (offsets[1:] - offsets[:-1])[cand]
     out = np.ones(m, dtype=bool)          # zero-length pairs are equal
     nz = np.flatnonzero(lengths)

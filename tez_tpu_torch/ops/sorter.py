@@ -6,7 +6,10 @@ key) sort); flush merges the spans.  Sorted key columns stay on the device
 as ``Run.batch.dev_keys`` so a merge of fresh runs ranks them in place (the
 resident merge); runs without them take the generic merge-path merge.
 Rows whose keys exceed the lane width get a host tie-break pass, so the
-final order is full raw-byte order for any key length.
+final order is full raw-byte order for any key length.  Spans and merges
+under the device floor (``device_min_records``) take the host engine: the
+host library's span sort and merges (ops/native.py), full-key compares
+with the GIL released.
 
 With ``pipeline_depth > 0`` (the library's default, 2) spans go through
 the async span plane (ops/async_stage.py): span k+1's host encode and H2D
@@ -41,7 +44,7 @@ import numpy as np
 from tez_tpu_torch.common import metrics
 from tez_tpu_torch.common.counters import TaskCounter, TezCounters
 from tez_tpu_torch.ops import device as device_ops
-from tez_tpu_torch.ops import kernels
+from tez_tpu_torch.ops import kernels, native
 from tez_tpu_torch.ops.keycodec import matrix_to_lanes, pad_to_matrix
 from tez_tpu_torch.ops.runformat import (FileRun, KVBatch,
                                          PartitionedRunWriter, Run,
@@ -351,8 +354,7 @@ class DeviceSorter:
             return batch
         if not bool(np.all(np.diff(batch.val_offsets) == 8)):
             return batch   # long-serde fixed-8 values only
-        from tez_tpu_torch.ops.native import hash_sum_native
-        first_idx, sums = hash_sum_native(
+        first_idx, sums = native.hash_sum_native(
             batch.key_bytes, batch.key_offsets,
             decode_longs_be(batch.val_bytes, n))
         kb2, ko2 = gather_ragged(batch.key_bytes, batch.key_offsets,
@@ -724,37 +726,27 @@ class DeviceSorter:
             return Run.from_sorted_batch(sorted_batch, sorted_partitions,
                                          self.num_partitions)
         sort_bytes, sort_offsets = _sort_keys(batch, self.key_normalizer)
+        if engine == "host":
+            return self._host_sort(batch, sort_bytes, sort_offsets,
+                                   custom_partitions, t0)
         mat, lengths = pad_to_matrix(sort_bytes, sort_offsets, self.key_width)
         lanes = matrix_to_lanes(mat)
-        from tez_tpu_torch.ops.host_sort import (host_hash_partition,
-                                                 host_sort_run)
         t_dev = time.time()
         if custom_partitions is not None or self.partitioner != "hash":
             partitions = custom_partitions if custom_partitions is not None \
                 else np.zeros(batch.num_records, dtype=np.int32)
-            if engine == "host":
-                sorted_partitions, perm = host_sort_run(partitions, lanes,
-                                                        lengths)
-            else:
-                sorted_partitions, perm = device_ops.sort_run(
-                    partitions, lanes, lengths, device=self.device)
+            sorted_partitions, perm = device_ops.sort_run(
+                partitions, lanes, lengths, device=self.device)
         else:
             # full-key FNV over a matrix padded to the longest key, so every
             # byte is hashed (host-partitioner parity)
             hash_w = 1 << max(2, (wmax - 1).bit_length())
             hmat, hlens = pad_to_matrix(batch.key_bytes, batch.key_offsets,
                                         hash_w)
-            if engine == "host":
-                partitions = host_hash_partition(hmat, hlens,
-                                                 self.num_partitions)
-                sorted_partitions, perm = host_sort_run(partitions, lanes,
-                                                        lengths)
-            else:
-                sorted_partitions, perm = device_ops.hash_sort_span(
-                    hmat, hlens, lanes, lengths, self.num_partitions,
-                    device=self.device)
-        if engine != "host":
-            _record_ms("device.span", self.counters, t_dev)
+            sorted_partitions, perm = device_ops.hash_sort_span(
+                hmat, hlens, lanes, lengths, self.num_partitions,
+                device=self.device)
+        _record_ms("device.span", self.counters, t_dev)
         sorted_batch = batch.take(perm)
         sort_lengths, keyfn = _sorted_key_view(sort_bytes, sort_offsets, perm)
         refinement = _exact_tiebreak(
@@ -764,6 +756,37 @@ class DeviceSorter:
             sorted_batch = sorted_batch.take(refinement)
         self._record_sort_ms(t0)
         return Run.from_sorted_batch(sorted_batch, sorted_partitions,
+                                     self.num_partitions)
+
+    def _host_sort(self, batch: KVBatch, sort_bytes: np.ndarray,
+                   sort_offsets: np.ndarray,
+                   custom_parts: Optional[np.ndarray], t0: float) -> Run:
+        """The host engine (tez_tpu's _native_host_sort): the host library
+        partitions by the FNV-1a of the full raw key and sorts stably by
+        (partition, full sort key), with the GIL released.  Without a
+        normalizer one fused call also writes the sorted batch out (the
+        dedup path repeats each unique key in place)."""
+        if self.key_normalizer is None:
+            kb, ko, vb, vo, row_index = native.span_sort_emit_native(
+                batch.key_bytes, batch.key_offsets, batch.val_bytes,
+                batch.val_offsets, self.num_partitions, custom_parts,
+                compute_hash=(custom_parts is None and
+                              self.partitioner == "hash"))
+            self._record_sort_ms(t0)
+            return Run(KVBatch(kb, ko, vb, vo), row_index)
+        if custom_parts is not None:
+            parts = custom_parts
+        elif self.partitioner == "hash" and self.num_partitions > 1:
+            parts = native.fnv32_partition_native(
+                batch.key_bytes, batch.key_offsets, self.num_partitions)
+        else:
+            parts = None    # every record in partition 0
+        perm = native.sort_partition_keys_native(sort_bytes, sort_offsets,
+                                                 parts)
+        sorted_partitions = np.zeros(batch.num_records, dtype=np.int32) \
+            if parts is None else parts[perm]
+        self._record_sort_ms(t0)
+        return Run.from_sorted_batch(batch.take(perm), sorted_partitions,
                                      self.num_partitions)
 
     def _store_run(self, run: Run) -> None:
@@ -991,7 +1014,9 @@ def merge_sorted_runs(runs: Sequence[Run], num_partitions: int,
     Runs whose key columns are all device-resident take the resident merge
     (per-partition slices ranked in place); the rest take the generic
     merge-path merge over freshly encoded lanes with the partition as the
-    leading lane, then the host tie-break for keys wider than key_width.
+    leading lane, then the host tie-break for keys wider than key_width,
+    or, on the host engine (below device_min_records), the host library's
+    merge (_host_merge).
     With key_normalizer set the runs are sorted by normalized keys, which
     the generic merge encodes (the device key columns hold raw keys).
     merge_factor > 1 bounds how many runs merge per pass (io.sort.factor)."""
@@ -1034,29 +1059,23 @@ def merge_sorted_runs(runs: Sequence[Run], num_partitions: int,
     # hybrid routing for the generic path only
     engine = _route_engine(engine, sum(r.batch.num_records for r in runs),
                            device_min_records)
+    if engine == "host":
+        return _host_merge(runs, num_partitions, key_normalizer, counters,
+                           t0)
     batch = KVBatch.concat([r.batch for r in runs])
-    partitions = np.concatenate([
-        np.repeat(np.arange(r.num_partitions, dtype=np.int32),
-                  np.diff(r.row_index)) for r in runs]) \
-        if runs else np.zeros(0, np.int32)
+    partitions = _run_partitions(runs)
     sort_bytes, sort_offsets = _sort_keys(batch, key_normalizer)
     mat, lengths = pad_to_matrix(sort_bytes, sort_offsets, key_width)
     lanes = matrix_to_lanes(mat)
-    if engine == "host":
-        from tez_tpu_torch.ops.host_sort import host_sort_run
-        sorted_partitions, perm = host_sort_run(partitions, lanes, lengths)
-    else:
-        # the inputs are pre-sorted runs: the O(N) merge-path ladder
-        run_bounds = np.zeros(len(runs) + 1, dtype=np.int64)
-        np.cumsum([r.batch.num_records for r in runs], out=run_bounds[1:])
-        cut = [slice(run_bounds[i], run_bounds[i + 1])
-               for i in range(len(runs))]
-        t_dev = time.time()
-        perm = device_ops.merge_path_runs([partitions[c] for c in cut],
+    # the inputs are pre-sorted runs: the O(N) merge-path ladder
+    run_bounds = _run_bounds(runs)
+    cut = [slice(run_bounds[i], run_bounds[i + 1]) for i in range(len(runs))]
+    t_dev = time.time()
+    perm = device_ops.merge_path_runs([partitions[c] for c in cut],
                                       [lanes[c] for c in cut],
                                       [lengths[c] for c in cut], device=dev)
-        _record_ms("device.merge", counters, t_dev)
-        sorted_partitions = partitions[perm]
+    _record_ms("device.merge", counters, t_dev)
+    sorted_partitions = partitions[perm]
     sorted_batch = batch.take(perm)
     sort_lengths, keyfn = _sorted_key_view(sort_bytes, sort_offsets, perm)
     refinement = _exact_tiebreak(sort_lengths, sorted_partitions,
@@ -1065,6 +1084,51 @@ def merge_sorted_runs(runs: Sequence[Run], num_partitions: int,
         sorted_batch = sorted_batch.take(refinement)
     _count_merge(counters, t0, len(runs))
     return Run.from_sorted_batch(sorted_batch, sorted_partitions,
+                                 num_partitions)
+
+
+def _run_partitions(runs: Sequence[Run]) -> np.ndarray:
+    """The partition of every row of the runs' concatenation."""
+    return np.concatenate([
+        np.repeat(np.arange(r.num_partitions, dtype=np.int32),
+                  np.diff(r.row_index)) for r in runs]) \
+        if runs else np.zeros(0, np.int32)
+
+
+def _run_bounds(runs: Sequence[Run]) -> np.ndarray:
+    run_bounds = np.zeros(len(runs) + 1, dtype=np.int64)
+    np.cumsum([r.batch.num_records for r in runs], out=run_bounds[1:])
+    return run_bounds
+
+
+def _host_merge(runs: Sequence[Run], num_partitions: int,
+                key_normalizer: Optional[Callable[[bytes], bytes]],
+                counters: Optional[TezCounters], t0: float) -> Run:
+    """The host engine's merge (tez_tpu's merge_emit_native /
+    merge_runs_native): full-key compares in the host library, equal
+    (partition, key) rows in the order of `runs` (the merge queue's age
+    order), the GIL released."""
+    live = [r for r in runs if r.batch.num_records > 0]
+    if key_normalizer is None and live and \
+            all(r.num_partitions == num_partitions for r in live):
+        # group-scan each run, merge the group heads, copy each group out
+        # whole: no concatenation and no row gather
+        kb, ko, vb, vo, row_index = native.merge_emit_native(
+            [(r.batch.key_bytes, r.batch.key_offsets, r.batch.val_bytes,
+              r.batch.val_offsets, r.row_index) for r in live],
+            num_partitions)
+        _count_merge(counters, t0, len(runs))
+        return Run(KVBatch(kb, ko, vb, vo), row_index)
+    # the runs are already sorted: a ladder of in-place merges of the
+    # concatenation replaces a full re-sort
+    batch = KVBatch.concat([r.batch for r in runs])
+    partitions = _run_partitions(runs)
+    sort_bytes, sort_offsets = _sort_keys(batch, key_normalizer)
+    perm = native.merge_runs_native(
+        sort_bytes, sort_offsets,
+        partitions if num_partitions > 1 else None, _run_bounds(runs))
+    _count_merge(counters, t0, len(runs))
+    return Run.from_sorted_batch(batch.take(perm), partitions[perm],
                                  num_partitions)
 
 

@@ -55,7 +55,8 @@ Phases, each checked, none allowed to fail:
    one, each with its DeviceFailover counters moved;
 8. the spilling map side at the repo's spill-benchmark shape
    (tez_tpu/tools/spill_bench.py, SPILL_r05.json; half its 512 MB a
-   producer): 4 producers, each writing 256 MB of KV (1-16 byte Zipf(1.3) words over a 2,000,000-word
+   producer, 2 producers of its 4): each writing 256 MB of KV (1-16 byte
+   Zipf(1.3) words over a 2,000,000-word
    vocabulary, each value the record's index as a big-endian long, no
    combiner) into DeviceSorter(num_partitions=4, key_width=16, 64 MB
    spans, pipeline_depth=2) with the default memory budget and a spill
@@ -70,8 +71,8 @@ Phases, each checked, none allowed to fail:
    threshold 0.9, single-batch limit 0.25, merge factor 64, the device
    engine from 65,536 records, async depth 2), over sorted map segments
    of 1-16 byte Zipf(1.3) words of phase 8's vocabulary whose values name
-   their source and index: A, one reducer's 416 MiB committed by 8 fetch
-   threads (32 segments of 8 MiB, 2 skewed segments of 64 MiB that take
+   their source and index: A, one reducer's 672 MiB committed by 8 fetch
+   threads (64 segments of 8 MiB, 2 skewed segments of 64 MiB that take
    the DISK target, 4 disk-direct sources), its streamed final merge in
    key order with each source's records in their order; B, one paced
    fetch thread over 32 segments and one skewed one, byte-identical at
@@ -98,7 +99,7 @@ Phases, each checked, none allowed to fail:
 11. OrderedWordCount through the port's own TezClient and DAGAppMaster
    (local thread runners, the tasks on the card), bench.py's DAG
    (_run_wordcount: 4 tokenizers in vector mode, 4 summations, 1 sorter,
-   io.sort.mb 512, the device sorter) over a 1 GiB corpus in bench.py's
+   io.sort.mb 512, the device sorter) over a 640 MiB corpus in bench.py's
    layout (8,192 words a line) of Zipf(1.3) words of phase 8's
    vocabulary, its staging directory under $TMPDIR: leg A with the sum
    combiner, leg B without, so every word crosses the first edge; each
@@ -123,9 +124,9 @@ Phases, each checked, none allowed to fail:
 13. the unordered edge: examples/wordcount.py through the port's
    TezClient over prefixes of phase 11's corpus (whole 1M-word chunks,
    words as bytes keys, pickled longs as values): A, the example's
-   defaults (a 100 MB output buffer, final merge on) over the first 64
+   defaults (a 100 MB output buffer, final merge on) over the first 16
    MiB; B, final merge off and an 8 MB buffer, so each tokenizer ships
-   its spills as events of their own, over the first 32 MiB; C,
+   its spills as events of their own, over the first 16 MiB; C,
    examples/simple_session.py over three 8 MiB slices in one pre-warmed
    session; every part file equal to a Counter golden restricted to its
    FNV partition, B's inputs fetched above one a partition, C's runners
@@ -147,17 +148,35 @@ Phases, each checked, none allowed to fail:
    the rows exchanged, the engine, the coordinator's _execute seconds
    (host planning, device step, readback, assembly), the MeshExchange
    counters and the peak device memory printed.
+16. the tiered buffer store and push shuffle, each leg over phase 15(b)'s
+   256 MiB prefix with phase 11's DAG and its part file byte-identical to
+   15(b)'s host exchange: A, two identical DAGs with the sum combiner in
+   one client with the store on (thread runners): the first publishes its
+   runs (the DEVICE tier's peak bytes above zero, polled while it runs),
+   the second reuses all 8 tokenizer and summation outputs from sealed
+   lineage and launches fewer kernels; then a run with 64 MiB of lanes on
+   the card, published and relieved through the out-of-memory ladder's
+   hook, must show its bytes gone from torch.cuda.memory_allocated; B,
+   push into the store without the combiner through a 256 MB host tier
+   (STORE_PUSH_CONF): pushed bytes above zero, host-to-disk demotions
+   above zero, no failover; C, B in 4 runner processes with the Python
+   server, each runner with its own process store: every spill's push
+   abandoned to the pull backstop as tez_tpu's are (no job-token secret
+   reaches the pusher), fetches across processes, every runner on the
+   card.  Each leg prints its wall, store counters, peak tier bytes, push
+   counters, merges, peak device memory and kernel launches.
 
 Kernel launch counts and the host library's call counts are zeroed
-before each path of phases 3-15 and read after it (phase 12's are summed
-from its runners' stats files; phase 15(a)'s checks are left out): each TPU kernel's
+before each path of phases 3-16 and read after it (phase 12's and 16
+C's are summed from its runners' stats files; phase 15(a)'s checks are
+left out): each TPU kernel's
 counterpart on the path must have been launched, and the general-query
 merge rank, which the main path no longer calls, not at all; the
 precombine of phase 6 must call hash_sum_i64, every host merge pass of
 phases 8-10 tz_merge_emit or tz_merge_runs, phase 11's combining leg the
 word-count aggregator (tz_wc_feed) and its other leg tz_split_ws, and
 the same of phase 12's legs in their runners.  The kernels' JSON line
-reports their launches over phases 3-6 and 8-15; the
+reports their launches over phases 3-6 and 8-16; the
 line before it, {"native": ...}, the library's calls by phase and phase
 2b's times.  The last line is {"ok": true, "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -174,6 +193,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -185,10 +205,12 @@ WORD_VOCAB = 100_000
 #: phase 8's scale: spill_bench's 2,000,000-word vocabulary and
 #: io.sort.mb=64 (SPILL_r05.json), with 256 MB of map output a producer
 #: (cut from spill_bench's 512 MB to keep the script within its time
-#: limit; most spans still spill)
+#: limit; most spans still spill), and 2 producers (cut from 4 for the
+#: same reason: each producer sorts, spills and merges on its own)
 SPILL_VOCAB = 2_000_000
 SPILL_SPAN_MB = 64
 SPILL_PRODUCER_MB = 256
+SPILL_PRODUCERS = 2
 ZIPF_A = 1.3
 #: the value of every word in the combiner leg: the long 1 (VarLongSerde)
 ONE_LONG = np.frombuffer((1 + (1 << 63)).to_bytes(8, "big"), np.uint8)
@@ -983,6 +1005,7 @@ def produce(producer_batches, key_width: int, span_bytes: int,
         if s.pipeline_depth > 0 and pipelines is not None:
             pipe = s._ensure_pipeline()
             pipe._instrument = True
+            watch_reserved(pipe, device)
             pipelines.append(pipe)
         for batch in batches:
             s.write_batch(batch)
@@ -990,6 +1013,27 @@ def produce(producer_batches, key_width: int, span_bytes: int,
               f"expected {len(batches)} span sorts, got {s.num_spills}")
         runs.append(s.flush())
     return runs
+
+
+def watch_reserved(pipe, device) -> None:
+    """Record the caching allocator's reserved bytes and the dispatching
+    thread's CPU time at each edge of each span's dispatch stage, in
+    pipe.reserved and pipe.dispatch_cpu ({(ids, edge): value}): a first
+    allocation on a fresh compute stream would show as growth across a
+    dispatch, and a dispatch whose CPU time is far below its wall time
+    waited (on the GIL or in a blocking driver call) rather than worked."""
+    import torch
+    pipe.reserved, pipe.dispatch_cpu = {}, {}
+    if not is_cuda(device):
+        return
+    real = pipe._mark
+
+    def mark(ids, stage, edge):
+        if stage == "device.dispatch":
+            pipe.reserved[(ids, edge)] = torch.cuda.memory_reserved(device)
+            pipe.dispatch_cpu[(ids, edge)] = time.thread_time()
+        return real(ids, stage, edge)
+    pipe._mark = mark
 
 
 def run_bytes(run) -> tuple:
@@ -1045,18 +1089,26 @@ def report_pipelines(label: str, pipelines, hist0: dict, device) -> None:
         edges = {}
         for ids, stage, edge, t in pipe.events:
             edges[(ids, stage, edge)] = t
-        disp, waits = [], []
-        for ids in {e[0] for e in edges}:
+        disp, waits, reserved, cpu = [], [], [], []
+        for ids in sorted({e[0] for e in edges}, key=repr):
             d0 = edges.get((ids, "device.dispatch", "start"))
             d1 = edges.get((ids, "device.dispatch", "end"))
             r1 = edges.get((ids, "device.d2h", "end"))
             if None not in (d0, d1, r1):
                 disp.append(d1 - d0)
                 waits.append(r1 - d0)
+                reserved.append(tuple(
+                    pipe.reserved.get((ids, e), 0) >> 20
+                    for e in ("start", "end")))
+                c0, c1 = (pipe.dispatch_cpu.get((ids, e), 0.0)
+                          for e in ("start", "end"))
+                cpu.append(round((c1 - c0) * 1e3, 3))
         log(f"{label} producer {i}: max_in_flight={st.max_in_flight} "
             f"coalesced_groups={st.coalesced_groups} dispatched="
             f"{st.dispatched} dispatch_ms={[round(d * 1e3, 3) for d in disp]}"
-            f" dispatch_wait_ms={[round(w * 1e3, 3) for w in waits]}")
+            f" dispatch_wait_ms={[round(w * 1e3, 3) for w in waits]}"
+            f" reserved_mib_before_after_dispatch={reserved}"
+            f" dispatch_thread_cpu_ms={cpu}")
         check(len(disp) == st.dispatched, f"{label}: missing stage events")
         check(not is_cuda(device) or max(disp) < min(waits) / 4,
               f"{label}: the dispatch stage is not far below the dispatch "
@@ -1558,7 +1610,7 @@ def file_run_partitions(fr) -> list:
     return out
 
 
-def spill_phase(args, device="cuda", producers: int = 4,
+def spill_phase(args, device="cuda", producers: int = SPILL_PRODUCERS,
                 producer_mb: float = SPILL_PRODUCER_MB,
                 span_mb: float = SPILL_SPAN_MB,
                 vocab_size: int = SPILL_VOCAB,
@@ -1689,19 +1741,19 @@ MERGE_KNOBS = dict(key_width=16, engine="auto", merge_factor=64,
                    merge_threshold=0.9, max_single_fraction=0.25,
                    async_depth=2)
 MERGE_FETCHERS = 8
-#: phase 9's sizes.  Leg A is one reducer's input: 32 map segments of 8
+#: phase 9's sizes.  Leg A is one reducer's input: 64 map segments of 8
 #: MiB of keys and values, 2 skewed segments of 64 MiB (over the 0.25 x
 #: budget single-batch limit, so they take the DISK target) and 4
-#: disk-direct sources of 8 MiB, 416 MiB in all (cut from 64 segments,
-#: 672 MiB, to keep the script within its time limit; the segments still
-#: cross the merge threshold several times).  Leg B: 32 segments and one
+#: disk-direct sources of 8 MiB, 672 MiB in all: at half the segments
+#: the fetchers' race with the merger decides between 2 and 3 mem->disk
+#: merges, and the leg wants at least 3.  Leg B: 32 segments and one
 #: skewed segment, committed in slot order (24 segments would cross the
 #: merge threshold once: 13 segments of ~16.2 MiB with their offsets pass
 #: 0.9 x 230.4 MiB, the other 11 do not).  Leg C: 48 segments of 1 MiB
 #: against a 16 MiB budget at merge factor 4.  Leg D: two sorters of 2
 #: spans of 16 MB each (cut from 4), a 16 MiB merge budget.
 MERGE_SIZES = dict(vocab_size=SPILL_VOCAB, budget=int(256 * (1 << 20) * 0.9),
-                   device_min_records=1 << 16, seg_mb=8, segments_a=32,
+                   device_min_records=1 << 16, seg_mb=8, segments_a=64,
                    skew_mb=64, skews_a=2, locals_a=4, segments_b=32,
                    c_seg_mb=1, c_segments=48, c_budget_mb=16, d_vocab=100_000,
                    d_span_mb=16, d_spans=2, d_budget_mb=16, hang_ms=10_000)
@@ -2895,13 +2947,16 @@ def task_phase(args, device="cuda", **sizes) -> dict:
 # phase 11: OrderedWordCount through the port's TezClient and AM
 # ---------------------------------------------------------------------------
 #: phase 11's DAG: bench.py's _run_wordcount (tez_tpu's bench) at a corpus
-#: of 1 GiB; leg A combines on the first edge, leg B ships every word
+#: of 640 MiB (cut from BASELINE config 2's 1 GiB to keep the script within
+#: its time limit; each tokenizer's ~600 MB of records still overflow one
+#: io.sort.mb span and spill); leg A combines on the first edge, leg B
+#: ships every word
 DAG_CONF = {"tez.runtime.io.sort.mb": 512,
             "tez.runtime.sorter.class": "device"}
 DAG_SHAPE = dict(tokenizer_parallelism=4, summation_parallelism=4,
                  sorter_parallelism=1, tokenizer_mode="vector")
 DAG_LEGS = {"A": {"combine": True}, "B": {"combine": False}}
-DAG_SIZES = dict(corpus_mb=1024, vocab_size=SPILL_VOCAB, conf={})
+DAG_SIZES = dict(corpus_mb=640, vocab_size=SPILL_VOCAB, conf={})
 #: a size the plain versions run in seconds: each tokenizer's span still
 #: clears the 65,536-record device floor at io.sort.mb 4
 TINY_DAG = dict(corpus_mb=4, vocab_size=20_000,
@@ -3050,31 +3105,115 @@ class DagRun:
         return dict(out)
 
 
-def run_dag(api, desc: dict, conf: dict, timeout: float = 3600) -> DagRun:
-    """desc through api's TezClient and AM (conf must name the staging
-    directory): the DAG is built, submitted and waited for; the history
-    is the AM's in-memory logging service."""
-    client = api.TezClient.create(desc["name"], conf, **api.client_kw)
+class StorePeaks:
+    """Polls a package's process store while a DAG runs: the peak bytes of
+    each tier (stats() every `period` seconds, once more at stop).  With
+    `enabled` false it starts no thread and the peaks stay 0."""
+
+    def __init__(self, root: str, period: float = 0.02,
+                 enabled: bool = True):
+        import importlib
+        self._store_mod = importlib.import_module(f"{root}.store")
+        self.period = period
+        self.enabled = enabled
+        self.peak = {"device": 0, "host": 0, "disk": 0}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True,
+                                        name="store-peaks")
+
+    def _sample(self) -> None:
+        store = self._store_mod.local_buffer_store()
+        if store is not None:
+            for tier, b in store.stats()["bytes"].items():
+                self.peak[tier] = max(self.peak[tier], int(b))
+
+    def _poll(self) -> None:
+        while not self._stop.wait(self.period):
+            self._sample()
+
+    def __enter__(self) -> "StorePeaks":
+        if self.enabled:
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.enabled:
+            self._stop.set()
+            self._thread.join()
+            self._sample()
+
+
+class SessionRun:
+    """Several DAGs through one client: each DagRun, the process store's
+    counters after each DAG and each DAG's peak tier bytes."""
+
+    def __init__(self):
+        self.app_id = ""
+        self.runs: list = []
+        self.store_counters: list = []
+        self.peaks: list = []
+
+    @property
+    def peak_device_bytes(self) -> list:
+        return [p["device"] for p in self.peaks]
+
+
+def run_session(api, descs: list, conf: dict, timeout: float = 3600,
+                between=None) -> SessionRun:
+    """descs through ONE of api's TezClients (conf must name the staging
+    directory), one DAG after another (a session: the AM, its runners and
+    the process's buffer store live across them); between() runs after
+    each DAG.  Each DagRun holds the AM's history events since the one
+    before it (the first from the AM's start).  When conf enables the
+    store, its tiers are polled while each DAG runs."""
+    import importlib
+    store_mod = importlib.import_module(f"{api.root}.store")
+    polled = str(conf.get("tez.runtime.store.enabled", "")).lower() in (
+        "1", "true", "yes")
+    out = SessionRun()
+    client = api.TezClient.create(descs[0]["name"], conf, **api.client_kw)
     client.start()
     try:
         am = client.framework_client.am
-        dag = build_dag(api, desc)
-        t0 = time.perf_counter()
-        handle = client.submit_dag(dag)
-        status = handle.wait_for_completion(timeout=timeout)
-        wall = time.perf_counter() - t0
-        service, app_id = am.logging_service, am.app_id
+        out.app_id = am.app_id
+        n0 = 0
+        for desc in descs:
+            dag = build_dag(api, desc)
+            with StorePeaks(api.root, enabled=polled) as peaks:
+                t0 = time.perf_counter()
+                handle = client.submit_dag(dag)
+                status = handle.wait_for_completion(timeout=timeout)
+                wall = time.perf_counter() - t0
+            store = store_mod.local_buffer_store()
+            out.store_counters.append(
+                dict(store.stats()["counters"]) if store is not None else {})
+            out.peaks.append(dict(peaks.peak))
+            events = list(am.logging_service.events)
+            out.runs.append(DagRun(
+                status.state.name, wall,
+                status.counters.to_dict() if status.counters else {},
+                events[n0:], []))
+            n0 = len(events)
+            if between is not None:
+                between()
     finally:
         client.stop()
-    path = os.path.join(conf["tez.staging-dir"], app_id, "recovery", "1",
-                        "journal.jsonl")
-    journal = []
+    return out
+
+
+def run_dag(api, desc: dict, conf: dict, timeout: float = 3600) -> DagRun:
+    """desc through api's TezClient and AM (conf must name the staging
+    directory): the DAG is built, submitted and waited for; the history
+    is the AM's in-memory logging service, the journal the recovery
+    journal's lines."""
+    sess = run_session(api, [desc], conf, timeout)
+    (run,) = sess.runs
+    path = os.path.join(conf["tez.staging-dir"], sess.app_id, "recovery",
+                        "1", "journal.jsonl")
     if os.path.exists(path):
         with open(path) as fh:
-            journal = [line.rstrip("\n") for line in fh if line.strip()]
-    return DagRun(status.state.name, wall,
-                  status.counters.to_dict() if status.counters else {},
-                  list(service.events), journal)
+            run.journal = [line.rstrip("\n") for line in fh if line.strip()]
+    return run
 
 
 def write_corpus(path: str, rng, mat, lens, nbytes: int,
@@ -3325,8 +3464,9 @@ def runner_reports(stats_dir: str) -> list:
 
 def remote_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
                  **sizes) -> dict:
-    """Phase 12 over phase 11's corpus; phase11 holds its legs (part file,
-    wall, counters).  Returns the kernel launches of the runners."""
+    """Phase 12's legs over phase 11's corpus; phase11 holds its legs
+    (part file, wall, counters).  Returns the kernel launches of the
+    runners."""
     import torch
     sz = dict(DAG_SIZES, **sizes)
     api = dag_api(device=device)
@@ -3429,8 +3569,10 @@ def remote_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
 #: phase 13's legs over prefixes of phase 11's corpus (MiB): A the
 #: example's defaults over the first a_mb, B per-spill events (final merge
 #: off, a b_buffer_mb output buffer) over the first b_mb, C three c_mb
-#: slices in one pre-warmed session
-UNORDERED_SIZES = dict(a_mb=64, b_mb=32, c_mb=8, b_buffer_mb=8)
+#: slices in one pre-warmed session (A and B cut from 64 and 32 MiB to
+#: keep the script within its time limit: ~6 us a word of per-record
+#: Python, and B still ships several spills a tokenizer)
+UNORDERED_SIZES = dict(a_mb=16, b_mb=16, c_mb=8, b_buffer_mb=8)
 TINY_UNORDERED = dict(a_mb=0.5, b_mb=1, c_mb=0.25, b_buffer_mb=1,
                       corpus_mb=2, vocab_size=20_000, chunk_lines=4)
 #: WordCount's summation parallelism (the example's default)
@@ -3822,7 +3964,258 @@ def mesh_phase(args, device="cuda", corpus=None, **sizes) -> dict:
     check(parts["host"] == parts["mesh"],
           "mesh (b): the mesh part file differs from the host exchange's")
     log("mesh: (a) and (b) passed")
-    return dict(out, launches=dict(totals), ms=ms)
+    return dict(out, launches=dict(totals), ms=ms, host_part=parts["host"])
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the tiered buffer store and push shuffle
+# ---------------------------------------------------------------------------
+#: phase 16's input: phase 15(b)'s prefix of phase 11's corpus
+STORE_SIZES = dict(store_mb=MESH_SIZES["mesh_mb"], conf={},
+                   host_mb=256, pressure_mb=64)
+#: a size the plain versions run in seconds (TINY_MESH's corpus): each
+#: tokenizer's ~1.9 MB spill fits under the push admission of a 2.5 MB
+#: host tier and demotes it; every span takes the device engine, so runs
+#: keep their lanes as they do at full size
+TINY_STORE = dict(store_mb=TINY_MESH["mesh_mb"],
+                  conf={"tez.runtime.io.sort.mb": 4,
+                        "tez.runtime.tpu.device.sort.min.records": 0},
+                  host_mb=2.5, pressure_mb=1)
+#: leg B's and C's store and push knobs beside the 256 MB host tier.  A
+#: tokenizer's one spill of this input is ~243 MB; at tez_tpu's default
+#: admission watermark (0.85 of the tier) it would always be refused, and
+#: since that watermark sits below the demotion watermark (0.9) admitted
+#: pushes alone never demote.  So admission may fill 0.95 of the tier and
+#: demotion starts at half of it.
+STORE_PUSH_CONF = {"tez.runtime.store.enabled": True,
+                   "tez.runtime.shuffle.push.enabled": True,
+                   "tez.runtime.shuffle.push.admit-watermark": 0.95,
+                   "tez.runtime.store.watermark.high": 0.5,
+                   "tez.runtime.store.watermark.low": 0.25}
+#: the DAG counters phase 16 prints for each leg
+STORE_TASK_COUNTERS = ("SHUFFLE_PUSH_BYTES", "SHUFFLE_PUSH_REJECTED",
+                       "SHUFFLE_CHUNK_COUNT", "NUM_MEM_TO_DISK_MERGES",
+                       "NUM_DISK_TO_DISK_MERGES", "MERGED_MAP_OUTPUTS",
+                       "NUM_SHUFFLED_INPUTS", "LOCAL_SHUFFLED_INPUTS")
+#: the store counters phase 16 prints for each leg
+STORE_COUNTERS = ("store.published", "store.hits", "store.misses",
+                  "store.lineage.sealed", "store.lineage.hits",
+                  "store.lineage.misses", "store.demotions.device_to_host",
+                  "store.demotions.host_to_disk")
+
+
+def store_counters(counters: dict) -> dict:
+    return {k: counters.get(k, 0) for k in STORE_COUNTERS}
+
+
+def task_counters(run: DagRun) -> dict:
+    task = run.counters.get("TaskCounter", {})
+    return {k: task.get(k, 0) for k in STORE_TASK_COUNTERS}
+
+
+def pressure_check(store, sz: dict, device) -> None:
+    """A run whose lanes live on the card, published into the process
+    store and relieved through the out-of-memory ladder's hook
+    (async_stage.relieve_pressure): the store drops its references before
+    the hook returns, so the lanes' bytes are gone from
+    torch.cuda.memory_allocated before a retry could allocate."""
+    import torch
+    from tez_tpu_torch.ops import async_stage
+    from tez_tpu_torch.ops.runformat import KVBatch, Run
+    if not is_cuda(device):
+        return
+    n = int(sz["pressure_mb"] * (1 << 20)) // 20     # 4 lanes + a length
+    batch = KVBatch(np.zeros(n, np.uint8), np.arange(n + 1, dtype=np.int64),
+                    np.zeros(0, np.uint8), np.zeros(n + 1, np.int64))
+    batch.dev_keys = (torch.zeros((n, 4), dtype=torch.int32, device=device),
+                      torch.zeros(n, dtype=torch.int32, device=device), 0, n)
+    lanes = batch.dev_keys[0].nbytes + batch.dev_keys[1].nbytes
+    store.publish("phase16/pressure", -1,
+                  Run(batch, np.array([0, n], np.int64)))
+    del batch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    held = store.tier_bytes("device")
+    freed = async_stage.relieve_pressure(held)
+    after = torch.cuda.memory_allocated()
+    log(f"store A: the ladder's hook freed {freed} lane bytes of {held} "
+        f"held; memory_allocated {before} -> {after} "
+        f"({before - after} bytes back, {lanes} of them the test run's)")
+    check(freed == held and store.tier_bytes("device") == 0,
+          f"store A: the hook freed {freed} of {held} device bytes")
+    check(before - after >= lanes,
+          f"store A: memory_allocated fell by {before - after} bytes, not "
+          f"the {lanes} bytes of lanes the store let go")
+    store.unregister_prefix("phase16/")
+
+
+def store_phase(args, corpus: DagCorpus, host_part: bytes, device="cuda",
+                **sizes) -> dict:
+    """Phase 16 (module docstring) over phase 15(b)'s prefix of `corpus`;
+    host_part is 15(b)'s host-exchange part file.  Returns the kernel
+    launches of its legs."""
+    import torch
+    from tez_tpu_torch.ops.async_stage import process_breaker
+    from tez_tpu_torch.store import local_buffer_store, reset_store
+    sz = dict(STORE_SIZES, **sizes)
+    api = dag_api(device=device)
+    card = torch.cuda.get_device_name(0) if is_cuda(device) else "cpu"
+    totals: collections.Counter = collections.Counter()
+    root = corpus.root
+    path, nbytes, golden = corpus.slice_file("owc_store.txt", 0,
+                                             sz["store_mb"])
+
+    def peak_gib() -> float:
+        return torch.cuda.max_memory_allocated() / 2**30 \
+            if is_cuda(device) else float("nan")
+
+    def start(label: str) -> None:
+        reset_store()
+        if is_cuda(device):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def check_part(label: str, out_dir: str) -> None:
+        part = check_wordcount(label, out_dir, corpus.mat, corpus.lens,
+                               golden)
+        check(part == host_part,
+              f"{label}: part file differs from phase 15(b)'s")
+
+    def report(label: str, run: DagRun, store: dict, peaks: dict,
+               launches: dict) -> None:
+        log(f"phase {label}: wall_s={run.wall:.3f} MB={nbytes / 1e6:.1f} "
+            f"MB_per_s={nbytes / 1e6 / run.wall:.1f}; store "
+            f"{json.dumps(store_counters(store))}; peak tier bytes "
+            f"{json.dumps(peaks)}; counters "
+            f"{json.dumps(task_counters(run))}; peak device memory "
+            f"{peak_gib():.3f} GiB; launches {json.dumps(launches)}")
+
+    # -- A: the store and cross-DAG reuse, two DAGs in one session ---------
+    label = "store A"
+    start(label)
+    outs = [os.path.join(root, f"store_out_A{i}") for i in range(2)]
+    descs = [wordcount_description([path], out, **DAG_SHAPE, combine=True)
+             for out in outs]
+    conf = dict(DAG_CONF, **sz["conf"], **{
+        "tez.runtime.store.enabled": True,
+        "tez.staging-dir": os.path.join(root, "store_staging_A")})
+    from tez_tpu_torch.ops import kernels
+    marks = []
+    with Launches(label, totals) as ln:
+        sess = run_session(api, descs, conf,
+                           between=lambda: marks.append(
+                               dict(kernels.launches)))
+        sync(device)
+    ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+    dag_launches = [marks[0], {k: v - marks[0].get(k, 0)
+                               for k, v in marks[1].items()}]
+    for i, (run, out) in enumerate(zip(sess.runs, outs)):
+        check(run.state == "SUCCEEDED", f"{label}: DAG {i + 1} {run.state}")
+        check_part(f"{label} DAG {i + 1}", out)
+        check_no_failover(label, run.counters)
+        report(f"{label} DAG {i + 1}", run, sess.store_counters[i],
+               sess.peaks[i], dag_launches[i])
+    c1, c2 = sess.store_counters
+    hits = c2["store.lineage.hits"] - c1["store.lineage.hits"]
+    reused = sess.runs[1].counters.get("ShuffleStore", {}).get(
+        "store.reuse.outputs", 0)
+    log(f"{label}: DAG 2 lineage hits {hits}, outputs reused {reused}, "
+        f"launches {sum(dag_launches[1].values())} against DAG 1's "
+        f"{sum(dag_launches[0].values())}")
+    check(c1["store.published"] > 0, f"{label}: DAG 1 published nothing")
+    check(sess.peaks[0]["device"] > 0,
+          f"{label}: the DEVICE tier held nothing while DAG 1 ran")
+    check(hits >= 8, f"{label}: DAG 2 hit sealed lineage {hits} times")
+    check(reused >= 8, f"{label}: DAG 2 reused {reused} outputs")
+    check(not is_cuda(device) or
+          sum(dag_launches[1].values()) < sum(dag_launches[0].values()),
+          f"{label}: DAG 2 launched no fewer kernels than DAG 1")
+    pressure_check(local_buffer_store(), sz, device)
+
+    # -- B: push into the store through a small host tier -------------------
+    label = "store B"
+    start(label)
+    out = os.path.join(root, "store_out_B")
+    conf = dict(DAG_CONF, **sz["conf"], **STORE_PUSH_CONF, **{
+        "tez.runtime.store.host.capacity-mb": sz["host_mb"],
+        "tez.staging-dir": os.path.join(root, "store_staging_B")})
+    desc = wordcount_description([path], out, **DAG_SHAPE, combine=False)
+    with Launches(label, totals) as ln:
+        sess = run_session(api, [desc], conf)
+        sync(device)
+    (run,) = sess.runs
+    report(label, run, sess.store_counters[0], sess.peaks[0], ln.counts)
+    check(run.state == "SUCCEEDED", f"{label}: state {run.state}")
+    check_part(label, out)
+    check_no_failover(label, run.counters)
+    br = process_breaker()
+    check(br.state == "closed" and br.trips == 0,
+          f"{label}: breaker {br.state}, {br.trips} trips")
+    tc, sc = task_counters(run), sess.store_counters[0]
+    check(tc["SHUFFLE_PUSH_BYTES"] > 0, f"{label}: nothing was pushed")
+    check(sc["store.demotions.host_to_disk"] > 0,
+          f"{label}: the host tier never demoted to disk")
+    ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+
+    # -- C: B in runner processes, each with its own process store ----------
+    label = "store C"
+    start(label)
+    stats_dir = os.path.join(root, "store_runner_stats")
+    os.makedirs(stats_dir)
+    out = os.path.join(root, "store_out_C")
+    conf = dict(DAG_CONF, **sz["conf"], **STORE_PUSH_CONF, **{
+        "tez.runtime.store.host.capacity-mb": sz["host_mb"],
+        "tez.staging-dir": os.path.join(root, "store_staging_C"),
+        "tez.runner.mode": "subprocess",
+        "tez.am.local.num-containers": REMOTE_RUNNERS,
+        "tez.am.container.idle.release-timeout-min.millis": REMOTE_HOLD_MS,
+        "tez.am.runner.env": {"TEZ_TPU_RUNNER_STATS_DIR": stats_dir,
+                              "TEZ_TPU_LOG": "WARNING"}})
+    desc = wordcount_description([path], out, **DAG_SHAPE, combine=False)
+    run = run_dag(api, desc, conf)
+    reports = runner_reports(stats_dir)
+    launches: collections.Counter = collections.Counter()
+    runner_store: collections.Counter = collections.Counter()
+    for r in reports:
+        launches.update(r["launches"])
+        runner_store.update(r["store"])
+    peaks = {"runners' peak device bytes": [r.get("peak_device_bytes")
+                                            for r in reports]}
+    report(label, run, dict(runner_store), peaks, dict(launches))
+    check(run.state == "SUCCEEDED", f"{label}: state {run.state}")
+    check_part(label, out)
+    check_no_failover(label, run.counters)
+    tc = task_counters(run)
+    remote = tc["NUM_SHUFFLED_INPUTS"] - tc["LOCAL_SHUFFLED_INPUTS"]
+    log(f"{label}: inputs fetched across processes {remote} of "
+        f"{tc['NUM_SHUFFLED_INPUTS']}; {len(reports)} runners ran "
+        f"{sum(r['tasks'] for r in reports)} tasks; bytes pushed into the "
+        f"runners' servers {sum(r['bytes_pushed'] for r in reports)}")
+    # tez_tpu's OrderedPartitionedKVOutput hands its SpillPusher no
+    # job-token secret, and a runner's destination has a port: every push
+    # is abandoned to the pull backstop (tests/test_torch_push.py holds
+    # both packages' counters equal)
+    check(tc["SHUFFLE_PUSH_BYTES"] == 0,
+          f"{label}: {tc['SHUFFLE_PUSH_BYTES']} bytes pushed")
+    check(tc["SHUFFLE_PUSH_REJECTED"] == tc["SHUFFLE_CHUNK_COUNT"] > 0,
+          f"{label}: {tc['SHUFFLE_PUSH_REJECTED']} pushes abandoned of "
+          f"{tc['SHUFFLE_CHUNK_COUNT']} spills")
+    check(remote > 0, f"{label}: no fetch crossed processes")
+    check(len(reports) > 0, f"{label}: no runner reported")
+    for r in reports:
+        check(r["device"] == torch.device(device).type
+              and r["device_name"] == card,
+              f"{label}: runner {r['pid']} on {r['device']} "
+              f"({r['device_name']})")
+    if is_cuda(device):
+        for kname in ("fnv_hash_lanes", "merge_path_pair"):
+            check(launches[kname] > 0, f"{label}: no runner launched {kname}")
+        check(launches["merge_rank"] == 0,
+              f"{label}: a runner launched merge_rank")
+    totals.update(launches)
+    reset_store()
+    log("store: legs A-C passed")
+    return dict(totals)
 
 
 class SettableClock:
@@ -3973,6 +4366,12 @@ def main(argv=None) -> int:
         log(f"mesh: {time.perf_counter() - t0:.3f} s, launches "
             f"{json.dumps(mesh['launches'])}, host library "
             f"{phase_native('mesh')}")
+        t0 = time.perf_counter()
+        log(f"store phase on {card}")
+        store_launches = store_phase(args, corpus, mesh["host_part"])
+        log(f"store: {time.perf_counter() - t0:.3f} s, launches "
+            f"{json.dumps(store_launches)}, host library "
+            f"{phase_native('store')}")
     launches = collections.Counter(launches)
     launches.update(spill_launches)
     launches.update(merge_launches)
@@ -3981,6 +4380,7 @@ def main(argv=None) -> int:
     launches.update(remote_launches)
     for later in (unordered, mrr, mesh):
         launches.update(later["launches"])
+    launches.update(store_launches)
     for kname, row in rows.items():
         row["launches"] = launches[kname]
     for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:
@@ -3988,13 +4388,15 @@ def main(argv=None) -> int:
             log(f"launch check: {tpu_kernel} ({where}) -> {kname}: "
                 f"{launches[kname]} launches on the slice, the spill "
                 f"path, the merge legs, the tasks, the DAG, its runner "
-                f"processes, the unordered edge, MRR and the mesh DAGs")
+                f"processes, the unordered edge, MRR, the mesh DAGs and "
+                f"the store and push DAGs")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
         f"counterpart, held in phase 2): {launches['merge_rank']} launches "
         f"on the slice, the spill path, the merge legs, the tasks, the DAG, "
-        f"its runner processes, the unordered edge, MRR and the mesh DAGs")
+        f"its runner processes, the unordered edge, MRR, the mesh DAGs "
+        f"and the store and push DAGs")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

@@ -638,6 +638,33 @@ def test_async_stream_race_probe(cuda):
         torch.cuda.synchronize()
 
 
+def test_span_streams_pairs_come_back(cuda):
+    """A closed SpanStreams gives its (copy, compute) pair to the next one
+    on the device, with the device blocks the caching allocator keeps for
+    those streams; two open ones never share a pair; a sorter's pipeline
+    gives its pair back at the drain, and its flush equals the
+    synchronous one."""
+    def pair(st):
+        return st.copy.cuda_stream, st.compute.cuda_stream
+
+    a, b = device.SpanStreams("cuda"), device.SpanStreams("cuda")
+    assert pair(a) != pair(b)
+    a.close()
+    a.close()
+    c = device.SpanStreams("cuda")
+    assert pair(c) == pair(a)
+    b.close()
+    c.close()
+    batches = _bench_batches(9, 2, 50_000)
+    want, _ = _flush_producer(batches, "cuda")
+    got, s = _flush_producer(batches, "cuda", pipeline_depth=2)
+    _same(got, want)
+    assert pair(s._streams) == pair(c)
+    d = device.SpanStreams("cuda")
+    assert pair(d) == pair(c)
+    d.close()
+
+
 def test_span_scheduler_on_the_card(cuda):
     """DeviceSpanScheduler on the card: the card and host schedulers agree
     span by span, uncoalesced (depth 2) and coalesced, and span 0 alone
@@ -1320,6 +1347,73 @@ def test_dag_wordcount_in_runner_processes_matches_threads(cuda, tmp_path,
     assert sum(r["launches"]["fnv_hash_lanes"] for r in reports) > 0
     assert sum(r["launches"]["merge_path_pair"] for r in reports) > 0
     assert sum(r["launches"]["merge_rank"] for r in reports) == 0
+
+
+@pytest.mark.parametrize("mode", ["store", "push", "push_processes"])
+def test_dag_wordcount_with_the_store_on_the_card_matches_host(
+        cuda, tmp_path, mode):
+    """OrderedWordCount with the buffer store (twice in one process, the
+    second served from sealed lineage) or with push into it, on the card:
+    the part files equal the host run's, and the card runs launched both
+    kernels.  The store is the process's: reset between runs."""
+    from tez_tpu_torch.store import local_buffer_store, reset_store
+    corpus = _dag_corpus(tmp_path, 64)
+    conf = {"tez.runtime.store.enabled": True}
+    if mode != "store":
+        conf["tez.runtime.shuffle.push.enabled"] = True
+    if mode == "push_processes":
+        conf.update({"tez.runner.mode": "subprocess",
+                     "tez.am.local.num-containers": 4,
+                     "tez.am.container.idle.release-timeout-min.millis":
+                         600_000})
+    try:
+        reset_store()
+        host = _wordcount(tmp_path, corpus, "host", "cpu", combine=False)
+        reset_store()
+        kernels.reset_launches()
+        card = _wordcount(tmp_path, corpus, "card", "cuda", combine=False,
+                          conf=conf)
+        if mode == "store":
+            again = _wordcount(tmp_path, corpus, "again", "cuda",
+                               combine=False, conf=conf)
+            assert again == card
+            counters = local_buffer_store().stats()["counters"]
+            assert counters["store.lineage.hits"] >= 8
+        assert card == host and card
+        if mode != "push_processes":
+            assert kernels.launches["fnv_hash_lanes"] > 0
+            assert kernels.launches["merge_path_pair"] > 0
+        assert kernels.launches["merge_rank"] == 0
+    finally:
+        reset_store()
+
+
+def test_store_relief_frees_card_memory(cuda):
+    """The store's device relief, through the out-of-memory ladder's hook:
+    the lanes of an idle DEVICE-tier run on the card leave
+    torch.cuda.memory_allocated before the hook returns."""
+    from tez_tpu_torch.ops import async_stage
+    from tez_tpu_torch.ops.runformat import KVBatch, Run
+    from tez_tpu_torch.store import ensure_store, reset_store
+    reset_store()
+    try:
+        store = ensure_store({"tez.runtime.store.enabled": True})
+        n = 1 << 20
+        batch = KVBatch(np.zeros(n, np.uint8),
+                        np.arange(n + 1, dtype=np.int64),
+                        np.zeros(0, np.uint8), np.zeros(n + 1, np.int64))
+        batch.dev_keys = (torch.zeros((n, 4), dtype=torch.int32,
+                                      device="cuda"),
+                          torch.zeros(n, dtype=torch.int32, device="cuda"),
+                          0, n)
+        store.publish("dagC/a0/c", -1, Run(batch, np.array([0, n])))
+        del batch
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        assert async_stage.relieve_pressure(1) == 20 * n
+        assert before - torch.cuda.memory_allocated() >= 20 * n
+    finally:
+        reset_store()
 
 
 def test_native_server_serves_a_card_sorters_run(cuda, tmp_path):

@@ -75,8 +75,7 @@ CASES = {
 }
 
 
-@pytest.fixture(autouse=True)
-def _deterministic_planes(monkeypatch):
+def pace_both(monkeypatch):
     """Both packages: planes reset, one readback worker, paced commits."""
     for faults, asyncs in ((tfaults, tasync), (jfaults, jasync)):
         faults.clear_all()
@@ -92,10 +91,19 @@ def _deterministic_planes(monkeypatch):
             assert self.quiesce(timeout=120), "merger never went idle"
             return out
         monkeypatch.setattr(mm.ShuffleMergeManager, "commit", paced)
-    yield
+
+
+def unpace_both():
     for faults, asyncs in ((tfaults, tasync), (jfaults, jasync)):
         faults.clear_all()
         asyncs.reset_process_breaker()
+
+
+@pytest.fixture(autouse=True)
+def _deterministic_planes(monkeypatch):
+    pace_both(monkeypatch)
+    yield
+    unpace_both()
 
 
 def api_of(root):
@@ -438,7 +446,6 @@ DEFERRED = {
     "speculation": _submit({"tez.am.speculation.enabled": True}),
     "streaming": _submit({"tez.runtime.stream.id": "s"}),
     "lock_order_witness": _submit({"tez.debug.lockorder": True}),
-    "buffer_store": _submit({"tez.runtime.store.enabled": True}),
     "am_attempt_2": _am(attempt=2),
     "recover_and_resume": _am(call=lambda am: am.recover_and_resume()),
     "open_stream": _am(call=lambda am: am.open_stream(None)),

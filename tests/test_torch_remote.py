@@ -298,9 +298,11 @@ def test_fetch_session_many_fetches_one_connection(p, served_run):
 
 
 def test_push_request_refused_by_the_port():
-    """The port has no push landing zone: a push is drained and refused
-    with "unsupported", and the connection keeps serving fetches; a push
-    under a wrong token is forbidden."""
+    """A push to a process whose service has no landing zone (no buffer
+    store, no push admission) is drained and refused with "retry", as
+    tez_tpu's server answers it, and the connection keeps serving fetches;
+    a push under a wrong token is forbidden.  tests/test_torch_push.py
+    holds the push that lands against tez_tpu's."""
     p = pkg(ROOTS[0])
     service = p.service.ShuffleService()
     run = p.runformat.Run(p.runformat.KVBatch.from_pairs([(b"k", b"v")]),
@@ -310,7 +312,7 @@ def test_push_request_refused_by_the_port():
     server = p.server.ShuffleServer(secrets, service).start()
     blob = run.to_bytes()
     try:
-        for token, status in ((secrets, "unsupported"),
+        for token, status in ((secrets, "retry"),
                               (p.security.JobTokenSecretManager(),
                                "forbidden")):
             with socket.create_connection(("127.0.0.1", server.port)) as sk:

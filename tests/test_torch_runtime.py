@@ -7,9 +7,10 @@ for both packages (chip_smoke.run_edge and its in-process umbilical, the
 port on device="cpu"): events that reach a reducer before its inputs are
 initialized are trapped and replayed, and a processor that raises, or
 reports a fatal error, fails its task the same way in both.  The unit
-cases hold the copied modules to tez_tpu's answers, and the paths that
-need a module of a later slice (the buffer store, push shuffle, a fetch
-from another host) to a NotImplementedError.
+cases hold the copied modules to tez_tpu's answers; the buffer store,
+push shuffle and the fetch from another host, which earlier slices
+refused, run (tests/test_torch_store.py, test_torch_push.py and
+test_torch_remote.py hold them against tez_tpu's).
 """
 import dataclasses
 import os
@@ -380,31 +381,57 @@ def test_fault_points_keep_tez_tpu_texts():
         assert t_faults.KNOWN_POINTS[point] == j_faults.KNOWN_POINTS[point]
 
 
-# -- what the port does not have yet ------------------------------------------
-def test_store_push_and_remote_fetch_raise_not_implemented(tmp_path):
-    """The buffer store and push shuffle raise NotImplementedError (the
-    write-through file store and the fetch from another host are ported:
-    tests/test_torch_remote.py holds them against tez_tpu's)."""
-    from tez_tpu_torch.store import ensure_store
+# -- what earlier slices refused ---------------------------------------------
+def _canon(obj):
+    """Arrays as (dtype, bytes), so results compare with ==."""
+    if isinstance(obj, np.ndarray):
+        return (str(obj.dtype), obj.tobytes())
+    if isinstance(obj, (list, tuple)):
+        return [_canon(v) for v in obj]
+    return obj
+
+
+def test_store_and_push_edges_match_tez_tpu(tmp_path):
+    """Nothing of the buffer store or push shuffle raises
+    NotImplementedError any more (the write-through file store and the
+    fetch from another host are ported too: tests/test_torch_remote.py
+    holds them against tez_tpu's): the service attaches both, ensure_store
+    makes the store, and the edge runs with either knob on, each reducer's
+    result equal to tez_tpu's."""
+    from tez_tpu.store import reset_store as j_reset_store
+    from tez_tpu_torch.store import ensure_store, reset_store
     svc = t_service.ShuffleService()
-    for call in (lambda: svc.attach_buffer_store(object()),
-                 lambda: svc.attach_push_admission(object()),
-                 lambda: svc.push_publish("p", 0, None),
-                 lambda: ensure_store({"tez.runtime.store.enabled": True}),
-                 lambda: ensure_store({"tez.runtime.store.enabled": "yes"})):
-        with pytest.raises(NotImplementedError):
-            call()
-    assert ensure_store({}) is None
-    assert svc.buffer_store() is None and not svc.has_store()
-    api = api_of(ROOTS[0])
-    for knob in ("tez.runtime.store.enabled",
-                 "tez.runtime.shuffle.push.enabled"):
-        run = chip_smoke.run_edge(api, dict(CONF, **{knob: True}),
-                                  small_edge(api, maps=1, n=100), 1,
-                                  str(tmp_path / knob))
-        (diag,) = run.umbilical.diagnostics.values()
-        assert diag.startswith("NotImplementedError: ") and knob in diag
-        assert run.reducers == []
+    svc.attach_buffer_store(object())
+    svc.attach_push_admission(object())
+    assert svc.buffer_store() is not None and svc.push_admission() is not None
+    try:
+        for enabled in (True, "yes"):
+            assert ensure_store({"tez.runtime.store.enabled": enabled,
+                                 "tez.runtime.store.dir":
+                                     str(tmp_path / "s")}) is not None
+            reset_store()
+        assert ensure_store({}) is None
+        assert not svc.has_store()
+        for knob in ("tez.runtime.store.enabled",
+                     "tez.runtime.shuffle.push.enabled"):
+            results = []
+            for root in ROOTS:
+                api = api_of(root)
+                # push forces pipelined output: synchronous spans, as
+                # tests/test_torch_task_io.py's pipelined cases run
+                run = chip_smoke.run_edge(
+                    api, dict(CONF, **{knob: True,
+                                       "tez.runtime.sort.pipeline.depth": 0}),
+                    small_edge(api, maps=1, n=100), 1,
+                    str(tmp_path / knob / root))
+                assert run.umbilical.diagnostics == {}
+                results.append(_canon(run.results()))
+                reset_store()
+                j_reset_store()
+            assert results[0] == results[1] and results[0][0]
+    finally:
+        reset_store()
+        j_reset_store()
 
 
 def test_runner_device_defaults_to_the_card():

@@ -128,7 +128,8 @@ def test_import_guard_no_jax_no_tez_tpu():
                      "parallel", "parallel.mesh", "parallel.exchange",
                      "parallel.coordinator", "library.unordered",
                      "library.mesh_io", "examples.wordcount",
-                     "examples.simple_session", "examples.mrr"):
+                     "examples.simple_session", "examples.mrr",
+                     "store", "store.buffer_store", "shuffle.push"):
             assert "tez_tpu_torch." + name in names, name
         # a DAG through the port resolves every descriptor string it
         # carries (a string naming tez_tpu would load it here)

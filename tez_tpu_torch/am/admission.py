@@ -15,9 +15,10 @@ QUEUE
     consumer can never silently lose an accepted submission — the
     lossless-admission contract.
 SHED
-    the queue is full or the tenant is over its in-flight cap.  The
-    verdict travels to the client as a typed
-    :class:`~tez_tpu_torch.client.errors.DAGRejectedError` carrying a
+    the queue is full, the tenant is over its in-flight cap, or the
+    buffer store's host tier is beyond the admission watermark even
+    after a relief attempt.  The verdict travels to the client as a
+    typed :class:`~tez_tpu_torch.client.errors.DAGRejectedError` carrying a
     RETRY-AFTER hint — clients resubmit with full-jitter backoff
     (TezClient.submit_dag_with_retry); nothing server-side remembers
     the submission.
@@ -27,9 +28,9 @@ quotas live elsewhere (task_scheduler.py, store/buffer_store.py); this
 module only decides *whether and when* a DAG may occupy the AM.  See
 docs/multitenancy.md for the full model.
 
-The port's copy of tez_tpu.am.admission: the verdicts, the FIFO consumer
-and the tenant caps.  The port has no buffer store (so no store-pressure
-gate), no SLO watchdog and no AM recovery (so no requeue or crash path).
+The port's copy of tez_tpu.am.admission: the verdicts, the FIFO consumer,
+the tenant caps and the store-pressure gate.  The port has no SLO
+watchdog and no AM recovery (so no requeue or crash path).
 """
 from __future__ import annotations
 
@@ -95,6 +96,8 @@ class AdmissionController:
             conf.get(C.AM_SESSION_TENANT_MAX_INFLIGHT) or 0)
         self.retry_after_ms = float(
             conf.get(C.AM_SESSION_SHED_RETRY_AFTER_MS) or 500.0)
+        self.admit_watermark = float(
+            conf.get(C.AM_SESSION_ADMIT_STORE_WATERMARK) or 0.95)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._queue: "collections.deque[_QueuedSubmission]" = \
@@ -189,11 +192,31 @@ class AdmissionController:
                 ts.inflight() >= self.tenant_max_inflight:
             return (f"tenant over tez.am.session.tenant.max-inflight="
                     f"{self.tenant_max_inflight}")
+        if self._store_pressure():
+            return ("store host tier beyond "
+                    "tez.am.session.admit.store-watermark")
         if self._running >= self.max_concurrent and \
                 len(self._queue) >= self.queue_size:
             return (f"admission queue full "
                     f"(tez.am.session.queue-size={self.queue_size})")
         return None
+
+    def _store_pressure(self) -> bool:
+        """Host-tier occupancy gate, after one relief attempt (the store's
+        relieve_* signals double as the admission pressure valve)."""
+        from tez_tpu_torch.shuffle.service import local_shuffle_service
+        store = local_shuffle_service().buffer_store()
+        if store is None:
+            return False
+        from tez_tpu_torch.store.buffer_store import HOST
+        cap = store.capacity(HOST)
+        if cap <= 0:
+            return False
+        used = store.tier_bytes(HOST)
+        if used <= cap * self.admit_watermark:
+            return False
+        store.relieve_host_pressure(int(used - cap * self.admit_watermark))
+        return store.tier_bytes(HOST) > cap * self.admit_watermark
 
     def _rollback_start(self, tenant: str) -> None:
         with self._lock:

@@ -358,8 +358,16 @@ class DAGAppMaster:
             self._notify_admission(dag, final)
             return
         # deletion tracking: drop the finished DAG's shuffle data
-        # (reference: ContainerLauncherManager DeletionTracker)
+        # (reference: ContainerLauncherManager DeletionTracker).  A store-
+        # backed session seals lineage-tagged outputs FIRST so identical
+        # recurring DAGs reuse them after this DAG's keys are released.
         from tez_tpu_torch.shuffle.service import local_shuffle_service
+        store = local_shuffle_service().buffer_store()
+        if store is not None and final is DAGState.SUCCEEDED:
+            sealed = store.seal_lineage(str(dag.dag_id))
+            if sealed:
+                log.info("dag %s: sealed %d outputs for lineage reuse",
+                         dag.dag_id, sealed)
         n = local_shuffle_service().unregister_prefix(str(dag.dag_id))
         if n:
             log.info("dag %s: released %d shuffle outputs", dag.dag_id, n)
@@ -411,11 +419,8 @@ class DAGAppMaster:
                    sub_id: str = "") -> DAGId:
         """Instantiate + start an admitted DAG (AdmissionController only)."""
         # a DAG that asks for what the port lacks is refused before it is
-        # journaled (the tiered buffer store: ensure_store raises)
-        from tez_tpu_torch.store import ensure_store
-        dag_conf = self.conf.merged(plan.dag_conf)
-        _refuse_unported(dag_conf)
-        ensure_store(dag_conf)
+        # journaled
+        _refuse_unported(self.conf.merged(plan.dag_conf))
         with self._dag_done:
             self._dag_seq += 1
             dag_id = DAGId(self.app_id, self._dag_seq)
@@ -455,6 +460,15 @@ class DAGAppMaster:
                 log.info("debug artifact: %s", path)
             except Exception:  # noqa: BLE001 — diagnostics must not fail
                 log.exception("debug artifact write failed")
+        # tiered buffer store: created on the first DAG that enables it and
+        # shared by the whole session; lineage hashes let recurring DAGs
+        # reuse sealed outputs (computed per-submit — they depend only on
+        # the plan, not the dag id)
+        from tez_tpu_torch.store import ensure_store
+        if ensure_store(dag.conf) is not None and \
+                dag.conf.get(C.STORE_LINEAGE_REUSE):
+            from tez_tpu_torch.store.lineage import vertex_lineage_hashes
+            dag.lineage_hashes = vertex_lineage_hashes(plan)
         # fault plane (test/chaos only): rules arm with the DAG and disarm
         # with it in on_dag_finished — per-DAG scoping
         from tez_tpu_torch.common import faults

@@ -11,10 +11,10 @@ summary event carrying the plane's overflow accounting (ring evictions,
 collector failures, scrape errors).
 
 The port's copy of tez_tpu.am.telemetry's TelemetrySampler.  The port has
-no SLO watchdog (burn-rate evaluation), no web UI (the continuous doctor,
-``live_status``) and no store collector: the shuffle service's
-registered-run inventory and the mesh exchange's per-device lane occupancy
-are its collectors.
+no SLO watchdog (burn-rate evaluation) and no web UI (the continuous
+doctor, ``live_status``).  Its collectors are tez_tpu's three: the buffer
+store's tier and tenant bytes, the shuffle service's registered-run
+inventory and the mesh exchange's per-device lane occupancy.
 """
 from __future__ import annotations
 
@@ -54,7 +54,9 @@ class TelemetrySampler:
             return
         from tez_tpu_torch.parallel import coordinator
         from tez_tpu_torch.shuffle import service
+        from tez_tpu_torch.store import buffer_store
         reg = timeseries.registry()
+        reg.register_collector("store", buffer_store.telemetry_collector)
         reg.register_collector("shuffle", service.telemetry_collector)
         reg.register_collector("mesh", coordinator.telemetry_collector)
         self._stop_event.clear()

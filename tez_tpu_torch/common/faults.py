@@ -117,6 +117,15 @@ KNOWN_POINTS: Dict[str, str] = {
     "commit.publish":
         "io/file_output.py per-part-file publish inside commit_output "
         "(detail = part filename; delay mode holds the commit mid-publish)",
+    "shuffle.push.send":
+        "shuffle/push.py SpillPusher send attempt (detail = "
+        "path/spill -> dest); fail mode kills the eager push so the "
+        "consumer must recover through the pull path — the push-storm "
+        "chaos lever",
+    "shuffle.push.admit":
+        "shuffle/push.py PushAdmissionController decision (detail = "
+        "source path + nbytes); fail mode turns the decision into a "
+        "RETRY-AFTER rejection, delay mode stretches admit_wait",
     "am.admit.shed":
         "am/admission.py AdmissionController decision (detail = "
         "tenant/dag name); fail mode forces the verdict to SHED with "

@@ -10,9 +10,9 @@ the task's device.
 
 The port's copy of tez_tpu.library.inputs (the unordered inputs live in
 library/unordered.py).  A payload from another process or host goes to
-the TCP fetch pool (shuffle/scheduler.py); push shuffle needs its landing
-zone, which is not ported yet, so asking for it raises
-NotImplementedError.
+the TCP fetch pool (shuffle/scheduler.py), which first probes this
+process's buffer store; with push shuffle on, the merge manager merges
+eagerly and wakes on every push that lands here.
 """
 from __future__ import annotations
 
@@ -53,13 +53,17 @@ def _is_checksum_error(e: Exception) -> bool:
 
 class _SlotState:
     """Fetch bookkeeping for one physical input (one source task)."""
-    __slots__ = ("batches", "spills_seen", "complete", "version")
+    __slots__ = ("batches", "spills_seen", "complete", "version",
+                 "last_spill")
 
     def __init__(self) -> None:
         self.batches: List[KVBatch] = []
         self.spills_seen: set = set()
         self.complete = False
         self.version = -1
+        #: the spill id of the last event (a pipelined producer's final
+        #: marker), once it has been committed; None before
+        self.last_spill: Optional[int] = None
 
 
 class ShuffleFetchTable:
@@ -119,8 +123,7 @@ class ShuffleFetchTable:
         fetcher pool with per-host queues, coalescing, penalty box and
         speculative refetch (ShuffleScheduler.java:91,179,295 analog; see
         shuffle/scheduler.py).  Created lazily: purely-local shuffles never
-        pay for the threads.  No local probe: it serves from the buffer
-        store, which the port does not have."""
+        pay for the threads."""
         if self._scheduler is None:
             from tez_tpu_torch.common.payload import resolve_class
             from tez_tpu_torch.shuffle.scheduler import (FetchScheduler,
@@ -156,8 +159,28 @@ class ShuffleFetchTable:
                 stall_timeout=float(
                     _k(C.SHUFFLE_SPECULATIVE_FETCH_WAIT_MS)) / 1e3,
                 session_ttl=float(
-                    _k(C.SHUFFLE_FETCH_SESSION_TTL_MS)) / 1e3)
+                    _k(C.SHUFFLE_FETCH_SESSION_TTL_MS)) / 1e3,
+                local_probe=self._store_probe
+                if self.service.buffer_store() is not None else None)
         return self._scheduler
+
+    def _store_probe(self, path: str, spill: int,
+                     partition: int) -> Optional[KVBatch]:
+        """Buffer-store short-circuit for the remote pool: a fetch whose
+        data this process already holds (store-registered or lineage-
+        republished) is served zero-copy instead of over TCP."""
+        try:
+            batch = self.service.fetch_partition(
+                path, spill, partition, counters=self.context.counters,
+                app_id=getattr(self.context, "app_id", ""),
+                window_id=getattr(self.context, "window_id", 0),
+                stream=getattr(self.context, "stream", ""))
+        except ShuffleDataNotFound:
+            return None
+        with self._deliver_lock:
+            self.context.counters.find_counter(
+                "ShuffleStore", "store.short_circuit").increment(1)
+        return batch
 
     def shutdown(self) -> None:
         self._closing = True
@@ -345,9 +368,18 @@ class ShuffleFetchTable:
             if payload.spill_id >= 0:
                 s.spills_seen.add(payload.spill_id)
             if payload.last_event:
-                if not s.complete:
-                    s.complete = True
-                    self.completed += 1
+                s.last_spill = payload.spill_id
+            # a pipelined producer's spills are complete only when every
+            # spill up to its final marker has been committed: from runner
+            # processes the final marker (sent at close) can overtake
+            # earlier spills' events (sent on the heartbeat).  tez_tpu
+            # completes the slot on the final marker and drops the spills
+            # that arrive after it.
+            if s.last_spill is not None and not s.complete and \
+                    all(i in s.spills_seen
+                        for i in range(s.last_spill + 1)):
+                s.complete = True
+                self.completed += 1
             self.lock.notify_all()
 
     def on_input_failed(self, slot: int, version: int) -> None:
@@ -387,10 +419,6 @@ class OrderedGroupedKVInput(LogicalInput):
 
     def initialize(self) -> List[TezAPIEvent]:
         ctx = self.context
-        if _conf_get(ctx, "tez.runtime.shuffle.push.enabled", False):
-            raise NotImplementedError(
-                "tez.runtime.shuffle.push.enabled: push shuffle is not "
-                "ported to tez_tpu_torch yet")
         self.key_serde = get_serde(_conf_get(ctx, "tez.runtime.key.class",
                                              "bytes"))
         self.val_serde = get_serde(_conf_get(ctx, "tez.runtime.value.class",
@@ -429,11 +457,22 @@ class OrderedGroupedKVInput(LogicalInput):
             ctx, "tez.runtime.merge.engine.min-records", 0)) or \
             int(_conf_get(
                 ctx, "tez.runtime.tpu.device.sort.min.records", 1 << 16))
+
+        # push-based shuffle: eager merge overlaps the map wave — the
+        # background merger starts once the eager fraction of the budget
+        # is committed instead of waiting for admission pressure
+        push_on = bool(_conf_get(
+            ctx, "tez.runtime.shuffle.push.enabled", False))
+        self._push_enabled = push_on
+        eager = float(_conf_get(
+            ctx, "tez.runtime.shuffle.push.eager-merge-threshold",
+            0.5)) if push_on else 0.0
         self._mm_budget = budget_mb << 20
         self._mm_kwargs = dict(
             key_width=self.key_width, engine=merge_engine,
             merge_factor=factor,
             device_min_records=merge_min,
+            eager_threshold=eager,
             merge_threshold=float(_conf_get(
                 ctx, "tez.runtime.shuffle.merge.percent", 0.9)),
             max_single_fraction=float(_conf_get(
@@ -452,6 +491,7 @@ class OrderedGroupedKVInput(LogicalInput):
         ctx.request_initial_memory(int(frac * (sort_mb << 20)), _Granted(),
                                    component_type="SORTED_MERGED_INPUT")
         self.merge_manager = None     # created in start(): grant lands first
+        self._push_listener = None    # registered in start() when push on
         self.table = ShuffleFetchTable(ctx, self.num_physical_inputs,
                                        my_partition=ctx.task_index)
         return []
@@ -465,6 +505,18 @@ class OrderedGroupedKVInput(LogicalInput):
             self.context.counters, self._mm_budget, self._spill_dir,
             **self._mm_kwargs)
         self.table.merge_manager = self.merge_manager
+        if self._push_enabled:
+            # merge-wake seam: a pushed arrival pokes the merger so the
+            # async merge lane re-evaluates eager-merge eligibility the
+            # moment bytes land, not a poll period later
+            mm = self.merge_manager
+
+            def _push_wake(_path: str, _spill: int, _mm=mm) -> None:
+                with _mm.lock:
+                    _mm.lock.notify_all()
+
+            self._push_listener = _push_wake
+            local_shuffle_service().add_push_listener(_push_wake)
 
     def handle_events(self, events: Sequence[TezAPIEvent]) -> None:
         for ev in events:
@@ -534,6 +586,9 @@ class OrderedGroupedKVInput(LogicalInput):
         self._merged = None
         self._group_starts = None
         self._stream_plan = None
+        if self._push_listener is not None:
+            local_shuffle_service().remove_push_listener(self._push_listener)
+            self._push_listener = None
         self.table.shutdown()
         if self.merge_manager is not None:
             self.merge_manager.cleanup()

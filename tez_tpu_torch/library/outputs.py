@@ -6,10 +6,11 @@ close :189 -> DME events via ShuffleUtils.generateEventOnSpill) — the sorter
 behind it is the port's DeviceSorter instead of PipelinedSorter.
 
 The port's copy of tez_tpu.library.outputs.  The sorter runs on the task's
-device (the context's).  What needs a module of a later slice raises
-NotImplementedError at initialize(): push shuffle
-(tez.runtime.shuffle.push.enabled) and the tiered buffer store
-(tez.runtime.store.enabled), and with it cross-DAG output reuse.
+device (the context's).  With the tiered buffer store on
+(tez.runtime.store.enabled) runs publish into it, lineage tagged for
+cross-DAG output reuse; with push shuffle on
+(tez.runtime.shuffle.push.enabled) every spill is also pushed to the
+consumer's landing zone while the map wave runs.
 """
 from __future__ import annotations
 
@@ -105,13 +106,14 @@ class OrderedPartitionedKVOutput(LogicalOutput):
 
     def initialize(self) -> List[TezAPIEvent]:
         ctx = self.context
-        if _conf_get(ctx, "tez.runtime.shuffle.push.enabled", False):
-            raise NotImplementedError(
-                "tez.runtime.shuffle.push.enabled: push shuffle is not "
-                "ported to tez_tpu_torch yet")
         sort_mb = int(_conf_get(ctx, "tez.runtime.io.sort.mb", 256))
         self._pipelined = bool(_conf_get(
             ctx, "tez.runtime.pipelined-shuffle.enabled", False))
+        # push-based shuffle rides the pipelined spill stream (one eager
+        # push per finished spill), so enabling push implies pipelined
+        self._push_enabled = bool(_conf_get(
+            ctx, "tez.runtime.shuffle.push.enabled", False))
+        self._pipelined = self._pipelined or self._push_enabled
         key_width = int(_conf_get(ctx, "tez.runtime.tpu.key.width.bytes", 16))
         combiner_name = _conf_get(ctx, "tez.runtime.combiner.class", "")
         spill_dir = _conf_get(ctx, "tez.runtime.tpu.host.spill.dir", "") or \
@@ -136,14 +138,6 @@ class OrderedPartitionedKVOutput(LogicalOutput):
             from tez_tpu_torch.ops.runformat import resolve_codec
             resolve_codec(spill_codec)   # loud error on unknown/unavailable
             # codecs at initialize() — silently-off compression is worse
-        # tiered buffer store: None unless the conf enables it, which the
-        # port refuses (see tez_tpu_torch.store)
-        from tez_tpu_torch.store import ensure_store
-        merged: Dict[str, Any] = dict(ctx.conf)
-        payload = ctx.user_payload.load()
-        if isinstance(payload, dict):
-            merged.update(payload)
-        ensure_store(merged)
         self.sorter = DeviceSorter(
             num_partitions=self.num_physical_outputs,
             key_width=key_width,
@@ -193,16 +187,77 @@ class OrderedPartitionedKVOutput(LogicalOutput):
         self.service = local_shuffle_service()
         self.host = ctx.get_service_provider_metadata("shuffle") or \
             {"host": "local", "port": 0}
-        # the lineage tag a run is registered under (a later identical DAG
-        # would reuse it from the store)
+        # tiered buffer store: runners create their own process store from
+        # the task conf (in-process mode finds the AM's); outputs publish
+        # with a lineage tag so a later identical DAG can reuse them
+        from tez_tpu_torch.store import ensure_store
+        merged: Dict[str, Any] = dict(ctx.conf)
+        payload = ctx.user_payload.load()
+        if isinstance(payload, dict):
+            merged.update(payload)
+        ensure_store(merged)
         self._lineage = ""
+        self._reused = False
+        self._reuse_ready = False
         if not self._pipelined and bool(_conf_get(
                 ctx, "tez.runtime.store.lineage.reuse", True)):
             from tez_tpu_torch.store.lineage import task_lineage
             self._lineage = task_lineage(
                 getattr(ctx, "lineage", ""), ctx.task_index,
                 ctx.destination_vertex_name)
+        self._pusher = None
+        if self._push_enabled:
+            from tez_tpu_torch.shuffle.push import SpillPusher
+            self._pusher = SpillPusher(
+                self.service,
+                threads=int(_conf_get(
+                    ctx, "tez.runtime.shuffle.push.threads", 2)),
+                retries=int(_conf_get(
+                    ctx, "tez.runtime.shuffle.push.retries", 3)),
+                inflight_limit_bytes=int(float(_conf_get(
+                    ctx, "tez.runtime.shuffle.push.inflight-limit-mb",
+                    64)) * (1 << 20)),
+                counters=ctx.counters,
+                epoch=getattr(ctx, "am_epoch", 0),
+                app_id=getattr(ctx, "app_id", ""),
+                tenant=getattr(ctx, "tenant", ""),
+                replicas=int(_conf_get(
+                    ctx, "tez.runtime.shuffle.push.replicas", 1)),
+                window_id=getattr(ctx, "window_id", 0),
+                stream=getattr(ctx, "stream", ""))
+        store = self.service.buffer_store()
+        if self._lineage and store is not None:
+            # a non-pipelined output seals exactly one run (spill -1);
+            # anything else means a partial/incompatible seal — recompute
+            self._reuse_ready = store.lineage_spills(
+                self._lineage, app_id=getattr(ctx, "app_id", "")) == [-1]
         return []
+
+    # -- cross-DAG output reuse (session mode) -------------------------------
+    def reuse_available(self) -> bool:
+        """True when the store holds this task's sealed output from an
+        identical earlier DAG — the runner may then skip the processor and
+        publish_reused() instead of recomputing."""
+        return self._reuse_ready
+
+    def publish_reused(self) -> List[TezAPIEvent]:
+        """Alias the sealed lineage run under this attempt's path (zero
+        copy) and emit the same DME/VM events a fresh sort would."""
+        store = self.service.buffer_store()
+        ctx = self.context
+        path = output_path_component(ctx)
+        store.republish_lineage(self._lineage, path,
+                                epoch=getattr(ctx, "am_epoch", 0),
+                                app_id=getattr(ctx, "app_id", ""),
+                                counters=ctx.counters,
+                                window_id=getattr(ctx, "window_id", 0),
+                                stream=getattr(ctx, "stream", ""))
+        run = store.get(path, -1)
+        ctx.counters.increment(TaskCounter.OUTPUT_BYTES_PHYSICAL, run.nbytes)
+        ctx.counters.find_counter("ShuffleStore",
+                                  "store.reuse.outputs").increment(1)
+        self._reused = True
+        return self._events_for_run(run, -1, True)
 
     def get_writer(self) -> Writer:
         return _SorterWriter(self.sorter, self.key_serde, self.val_serde,
@@ -248,7 +303,15 @@ class OrderedPartitionedKVOutput(LogicalOutput):
         ctr = self.context.counters
         # _store_run convention: every shipped span counts as spilled
         ctr.increment(TaskCounter.SPILLED_RECORDS, run.batch.num_records)
-        if sorter.spill_dir is not None and run.nbytes >= (1 << 20):
+        push = self._pusher is not None
+        if sorter.spill_dir is not None and run.nbytes >= (1 << 20) and \
+                not self.service.has_store() and \
+                not (push and self.service.buffer_store() is not None):
+            # (with push + a buffer store, the store's watermark demotion
+            # is the bounded disk path and admission is the backpressure —
+            # a pspill here would re-serialize every spill for nothing)
+            # (with a write-through store attached the store's own file IS
+            # the disk copy — writing a pspill too would double the I/O)
             import uuid as _uuid
             from tez_tpu_torch.ops.runformat import (FileRun,
                                                      save_run_partitioned)
@@ -262,12 +325,17 @@ class OrderedPartitionedKVOutput(LogicalOutput):
             ctr.increment(TaskCounter.HOST_SPILL_BYTES, written)
             run = FileRun(path)
         path = output_path_component(self.context)
+        # push mode: the SYNCHRONOUS bare-registry register below is the
+        # pull backstop (events never race a missing key; a dead pusher
+        # never loses data) — the async push then aliases the same run
+        # into the reducer-side store, zero copy
         self.service.register(path, spill_id,
                               run, epoch=getattr(self.context, "am_epoch", 0),
                               app_id=getattr(self.context, "app_id", ""),
                               lineage=self._lineage,
                               tenant=getattr(self.context, "tenant", ""),
                               counters=self.context.counters,
+                              use_store=not push,
                               window_id=getattr(self.context,
                                                 "window_id", 0),
                               stream=getattr(self.context, "stream", ""))
@@ -275,9 +343,22 @@ class OrderedPartitionedKVOutput(LogicalOutput):
         self.context.send_events(self._events_for_run(run, spill_id, False))
         self._spills_sent += 1
         self.context.counters.increment(TaskCounter.SHUFFLE_CHUNK_COUNT)
+        if push:
+            self._pusher.submit(path, spill_id, run,
+                                host=self.host["host"],
+                                port=self.host["port"])
 
     def close(self) -> List[TezAPIEvent]:
+        if self._reused:
+            # publish_reused() already registered + announced the output;
+            # flushing the (empty) sorter would clobber the reused run
+            return []
         final_run = self.sorter.flush_run()
+        if self._pusher is not None:
+            # drain: every queued push lands (or exhausts retries into the
+            # pull backstop) before the task reports DONE, so push
+            # counters are settled and the final marker is truthful
+            self._pusher.close()
         if self._pipelined:
             # final empty marker event with last_event=True for completeness
             payload = ShufflePayload(

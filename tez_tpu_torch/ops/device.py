@@ -24,7 +24,8 @@ depend on them.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence, Tuple
+import threading
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -194,6 +195,16 @@ _TORCH_BITS = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
                np.dtype(np.uint64): torch.int64}
 
 
+#: (copy, compute) stream pairs that closed SpanStreams gave back, per
+#: device.  torch.cuda.Stream() hands out torch's pooled streams round
+#: robin, and the caching allocator keeps freed device blocks per stream:
+#: a pipeline on a stream no earlier span used grows the pool (cudaMalloc,
+#: a host call of widely varying cost) inside its first dispatches.  A
+#: pair taken back here still has the blocks its earlier spans freed.
+_IDLE_PAIRS: Dict[torch.device, List[tuple]] = {}
+_IDLE_LOCK = threading.Lock()
+
+
 class SpanStreams:
     """The CUDA streams and page-locked staging slots of one async pipeline.
 
@@ -202,20 +213,38 @@ class SpanStreams:
     slot and not per span; a slot is never refilled before the copy that
     last read it has completed (its event), and the pipeline's gate (at
     most ``depth`` = ``slots`` spans past staging) means that wait is
-    normally already over.  On the CPU there are no streams and no slots:
-    staging hands numpy memory to torch as is."""
+    normally already over.  The streams come from the idle pairs of this
+    device when there is one (_IDLE_PAIRS) and go back there at close();
+    two open SpanStreams never share a pair.  On the CPU there are no
+    streams and no slots: staging hands numpy memory to torch as is."""
 
     def __init__(self, device="cuda", slots: int = 2) -> None:
         self.device = resolve_device(device)
         self.cuda = self.device.type == "cuda"
         self.copy = self.compute = None
         self._slots: List[list] = []
+        self._closed = False
         if self.cuda:
-            with torch.cuda.device(self.device):
-                self.copy = torch.cuda.Stream()
-                self.compute = torch.cuda.Stream()
+            with _IDLE_LOCK:
+                idle = _IDLE_PAIRS.get(self.device)
+                pair = idle.pop() if idle else None
+            if pair is None:
+                with torch.cuda.device(self.device):
+                    pair = (torch.cuda.Stream(), torch.cuda.Stream())
+            self.copy, self.compute = pair
             self._slots = [[None, None] for _ in range(max(1, slots))]
         self._next = 0
+
+    def close(self) -> None:
+        """Give the streams back for a later SpanStreams on this device;
+        the owner enqueues nothing more on them (work already enqueued
+        stays ordered before the next owner's).  Idempotent."""
+        if not self.cuda or self._closed:
+            return
+        self._closed = True
+        with _IDLE_LOCK:
+            _IDLE_PAIRS.setdefault(self.device, []).append(
+                (self.copy, self.compute))
 
     def on(self, stream):
         """Context: this pipeline's device and `stream` current."""
@@ -287,15 +316,17 @@ def _pinned_like(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
-def _read_async(tensors: Sequence[torch.Tensor]):
+def _read_async(tensors: Sequence[torch.Tensor], into=None):
     """Enqueue D2H copies of `tensors` into page-locked host tensors on the
     current stream and record an event after them: (host tensors, event).
-    On the CPU the tensors themselves and no event."""
+    `into`, when given, holds those host tensors, allocated earlier; else
+    they are allocated here.  On the CPU the tensors themselves and no
+    event."""
     if not tensors or tensors[0].device.type != "cuda":
         return list(tensors), None
     out = []
-    for t in tensors:
-        h = _pinned_like(t)
+    for i, t in enumerate(tensors):
+        h = _pinned_like(t) if into is None else into[i]
         h.copy_(t, non_blocking=True)
         out.append(h)
     done = torch.cuda.Event()
@@ -307,8 +338,12 @@ def stage_resident_span(lanes: np.ndarray, lengths: np.ndarray,
                         streams: SpanStreams):
     """Host bucket-pad + H2D upload of a resident span (n > 0 rows): the
     rows are padded straight into the next pinned slot of `streams` and
-    copied on its copy stream.  Returns (lanes, lengths, n,
-    skip_length_pass, ready event)."""
+    copied on its copy stream.  The page-locked readback targets of the
+    span's dispatch are allocated here too, on the staging thread: a miss
+    of torch's caching host allocator pins fresh pages in cudaHostAlloc, a
+    blocking host call whose cost grows with the span, and the dispatch
+    stage only enqueues.  Returns (lanes, lengths, n, skip_length_pass,
+    ready event, readback targets)."""
     n = lanes.shape[0]
     uniform, _pad = uniform_clamped_lengths(lengths, lanes.shape[1] * 4 + 1)
     nb = _bucket(n)
@@ -321,7 +356,12 @@ def stage_resident_span(lanes: np.ndarray, lengths: np.ndarray,
 
     (lanes_t, lens_t), ready = streams.stage(
         [((nb, lanes.shape[1]), np.uint32), ((nb,), np.int32)], fill)
-    return lanes_t, lens_t, n, uniform, ready
+    targets = None
+    if streams.cuda:
+        # (sorted partitions, permutation): _lsd_passes's dtypes
+        targets = (torch.empty(n, dtype=torch.int32, pin_memory=True),
+                   torch.empty(n, dtype=torch.int64, pin_memory=True))
+    return lanes_t, lens_t, n, uniform, ready, targets
 
 
 def dispatch_resident_span(staged, num_partitions: int,
@@ -342,12 +382,12 @@ def dispatch_resident_span(staged, num_partitions: int,
 def _dispatch_resident(staged, num_partitions: int, streams: SpanStreams):
     """Enqueue the resident sort of a staged span: the lane hash kernel,
     the stable LSD passes, the gathers of the sorted key columns and the
-    D2H copies of (sorted partitions, permutation) into pinned memory, on
-    the compute stream of `streams`.  Nothing
+    D2H copies of (sorted partitions, permutation) into the pinned targets
+    that staging allocated, on the compute stream of `streams`.  Nothing
     here waits on the card: no .cpu()/.item(), no data-dependent shape.
     Returns (host partitions, host perm, sorted lanes, sorted lengths, n,
     done event); readback_resident_span waits on the event."""
-    lanes_t, lens_t, n, uniform, ready = staged
+    lanes_t, lens_t, n, uniform, ready, targets = staged
     with streams.on(streams.compute):
         if ready is not None:
             torch.cuda.current_stream().wait_event(ready)
@@ -357,7 +397,8 @@ def _dispatch_resident(staged, num_partitions: int, streams: SpanStreams):
         sp, perm = _lsd_passes(partitions, lanes_t, lens_t,
                                skip_length_pass=uniform)
         out_lanes, out_lens = lanes_t[perm], lens_t[perm]
-        (sp_h, perm_h), done = _read_async([sp[:n], perm[:n]])
+        (sp_h, perm_h), done = _read_async([sp[:n], perm[:n]],
+                                           into=targets)
     return sp_h, perm_h, out_lanes, out_lens, n, done
 
 
@@ -381,12 +422,15 @@ def hash_sort_span_resident(lanes: np.ndarray, lengths: np.ndarray,
     three stages back to back, through a one-slot SpanStreams: the pinned
     slot comes from torch's caching host allocator, so pinning is paid
     once per span size, not per call."""
-    streams = SpanStreams(device, slots=1)
     if lanes.shape[0] == 0:
         return (np.zeros(0, np.int32), np.zeros(0, np.int64), None)
-    return readback_resident_span(dispatch_resident_span(
-        stage_resident_span(lanes, lengths, streams), num_partitions,
-        streams))
+    streams = SpanStreams(device, slots=1)
+    try:
+        return readback_resident_span(dispatch_resident_span(
+            stage_resident_span(lanes, lengths, streams), num_partitions,
+            streams))
+    finally:
+        streams.close()
 
 
 def _slice_to_bucket(lanes: torch.Tensor, lengths: torch.Tensor, lo: int,

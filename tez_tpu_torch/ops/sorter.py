@@ -449,9 +449,10 @@ class DeviceSorter:
 
     def _async_oom_retry(self, ids, payloads) -> Run:
         """Out-of-memory ladder: evict, then split.  Registered pressure
-        hooks reclaim device memory first and the whole span retries on
-        the device; only when nothing was evictable (the port registers no
-        hook yet), or the whole-span retry runs out of memory again, is the
+        hooks reclaim device memory first (the buffer store's
+        relieve_device_pressure drops the lanes of idle DEVICE-tier runs)
+        and the whole span retries on the device; only when nothing was
+        evictable, or the whole-span retry runs out of memory again, is the
         span halved (recursively, down to split_min_bytes) before the host
         engine takes over.  Merging the stably sorted halves with run-age
         tie order equals the stable sort of the whole span."""
@@ -634,6 +635,7 @@ class DeviceSorter:
         pipe, self._pipeline = self._pipeline, None
         if pipe is not None:
             pipe.drain()
+            self._streams.close()
         if self._async_store_ids:
             order = sorted(range(len(self._async_store_ids)),
                            key=lambda i: self._async_store_ids[i])

@@ -102,9 +102,21 @@ class MemoryDistributor:
                     r.callback(r.granted)
             self._allocated = True
             return
-        # (tez_tpu first asks its tiered buffer store to demote idle
-        # entries toward disk; the port has no store, so the grants alone
-        # absorb the shortfall, as tez_tpu's do with the store off)
+        # oversubscribed: shuffle data the buffer store holds in host RAM
+        # competes with the buffers the scaled-down components are about to
+        # allocate — demote idle store entries toward disk by the shortfall
+        # before squeezing the task's own grants
+        try:
+            from tez_tpu_torch.store import local_buffer_store
+            store = local_buffer_store()
+            if store is not None:
+                freed = store.relieve_host_pressure(total - self.budget)
+                if freed:
+                    log.info("memory oversubscribed by %d bytes: store "
+                             "demoted %d bytes to disk",
+                             total - self.budget, freed)
+        except Exception:  # noqa: BLE001 — relief is best-effort
+            log.exception("buffer-store pressure relief failed")
         weighted = [(r, self.weights.get(r.component_type, 1))
                     for r in self._requests]
         # iterative weighted fill: capped requests release their surplus to

@@ -27,8 +27,9 @@ name, the kernel launches and host-library calls of its tasks
 (``kernels.launches``, ``native.calls``), the wall-clock times its module
 was imported, the port's modules (torch among them) were, and it first
 asked the umbilical for a task, the seconds it took to load the host
-library, the CUDA context and the kernels before that, and its shuffle
-server's bytes served.
+library, the CUDA context and the kernels before that, its shuffle
+server's bytes served and pushed into it, its buffer store's counters
+and, on the card, its peak device memory.
 The file is written whole and renamed into place, so a reader never sees
 half of it, and no exit hook is needed (the pool ends runners with
 SIGTERM).
@@ -52,8 +53,15 @@ log = logging.getLogger(__name__)
 
 def _write_stats(stats_dir: str, stats: dict) -> None:
     from tez_tpu_torch.ops import kernels, native
+    from tez_tpu_torch.store import local_buffer_store
+    store = local_buffer_store()
     stats = dict(stats, launches=dict(kernels.launches),
-                 native={k: v for k, v in native.calls.items() if v})
+                 native={k: v for k, v in native.calls.items() if v},
+                 store=store.stats()["counters"] if store is not None
+                 else {})
+    if stats["device"] == "cuda":
+        import torch
+        stats["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     path = os.path.join(stats_dir, f"runner-{os.getpid()}.json")
     with open(path + ".tmp", "w") as fh:
         json.dump(stats, fh)
@@ -136,7 +144,7 @@ def run_loop(am_host: str, am_port: int, node_id: str, token_hex: str,
              "container_id": container_id, "device": dev.type,
              "imported_s": _T_IMPORT, "modules_s": t_imported,
              "device_name": "cpu", "tasks": 0, "first_get_task_s": None,
-             "bytes_served": 0}
+             "bytes_served": 0, "bytes_pushed": 0}
     t0 = time.perf_counter()
     stats["device_name"] = _warm(dev)
     stats["warm_s"] = time.perf_counter() - t0
@@ -181,6 +189,8 @@ def run_loop(am_host: str, am_port: int, node_id: str, token_hex: str,
             if stats_dir:
                 stats["tasks"] = tasks_run
                 stats["bytes_served"] = shuffle_server.bytes_served
+                stats["bytes_pushed"] = getattr(shuffle_server,
+                                                "bytes_pushed", 0)
                 _write_stats(stats_dir, stats)
             if max_tasks and tasks_run >= max_tasks:
                 # container reuse disabled: one fresh process per task

@@ -19,9 +19,9 @@ Each requested partition ships as one checksummed single-partition Run blob
 (ops.runformat serialization), so corruption is detected end-to-end.
 
 The port's copy of tez_tpu.shuffle.server, on the same wire, so either
-package's fetcher reads from either package's server.  A push request
-(push shuffle, not ported yet) is drained and refused with the status
-"unsupported".
+package's fetcher and pusher talk to either package's server.  A push
+request lands each of its single-partition blobs in this process's push
+landing zone (ShuffleService.push_publish).
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ from tez_tpu_torch.common.security import (JobTokenSecretManager,
                                            shuffle_request_msg)
 from tez_tpu_torch.common.tls import wrap_server_class
 from tez_tpu_torch.ops.runformat import KVBatch, Run
+from tez_tpu_torch.shuffle.push import PushRejected
 from tez_tpu_torch.shuffle.service import (ShuffleDataNotFound, ShuffleService,
                                            local_shuffle_service)
 from tez_tpu_torch.utils.backoff import ExponentialBackoff, retry_call
@@ -120,25 +121,55 @@ class _Handler(socketserver.StreamRequestHandler):
 
     def _serve_push(self, server: "ShuffleServer", req: dict,
                     nonce: bytes) -> None:
-        """Push verb (tez_tpu's docs/push_shuffle.md): the blobs that
-        follow the request are drained so the keep-alive stream stays
-        framed, then the request is refused — forbidden on a bad HMAC,
-        else "unsupported": the port has no push landing zone yet."""
+        """Push verb: a remote mapper lands one spill's partitions in this
+        host's buffer store (tez_tpu's docs/push_shuffle.md).  Request
+        JSON carries ``sizes`` describing the single-partition Run blobs
+        that follow it on the wire.  The blobs are drained BEFORE any
+        verdict so the keep-alive stream stays framed whatever we reply.
+        Replies:
+        ok / retry (+retry_after_ms, admission said not now) / fenced
+        (stale producer epoch) / forbidden / bad_request."""
         path = req.get("path", "")
         spill = int(req.get("spill", -1))
         lo = int(req.get("partition_lo", 0))
         hi = int(req.get("partition_hi", lo + 1))
-        for size in req.get("sizes", []):
-            self.rfile.read(int(size))
+        sizes = [int(s) for s in req.get("sizes", [])]
+        blobs = [self.rfile.read(s) for s in sizes]
         sig = bytes.fromhex(req.get("hmac", ""))
         if not server.secrets.verify_hash(
                 sig, shuffle_request_msg(path, spill, lo, hi, nonce)):
             server.auth_failures += 1
             self._reply({"status": "forbidden"}, [])
             return
-        self._reply({"status": "unsupported",
-                     "error": "push shuffle is not ported to tez_tpu_torch "
-                              "yet"}, [])
+        if len(sizes) != hi - lo or any(len(b) != s
+                                        for b, s in zip(blobs, sizes)):
+            self._reply({"status": "bad_request"}, [])
+            return
+        epoch = int(req.get("epoch", 0) or 0)
+        app_id = str(req.get("app", "") or "")
+        from tez_tpu_torch.common.epoch import EpochFencedError
+        try:
+            for i, blob in enumerate(blobs):
+                run = Run.from_bytes(blob, where=f"<push {path}/{spill}>")
+                server.service.push_publish(
+                    path, spill, run, partition=lo + i, epoch=epoch,
+                    app_id=app_id)
+        except EpochFencedError:
+            # push_publish already fired the fence fault point + trace
+            self._reply({"status": "fenced"}, [])
+            return
+        except PushRejected as e:
+            # partitions admitted before the rejection stay published —
+            # idempotent extras the retry republishes; the pull backstop
+            # covers the rest either way
+            self._reply({"status": "retry",
+                         "retry_after_ms": e.retry_after_ms}, [])
+            return
+        except (IOError, ValueError):
+            self._reply({"status": "bad_request"}, [])
+            return
+        self._reply({"status": "ok"}, [])
+        server.bytes_pushed += sum(sizes)
 
     def _reply(self, header: dict, blobs: List[bytes]) -> None:
         hdr = json.dumps(header).encode()
@@ -169,6 +200,7 @@ class ShuffleServer:
         self._tcp.service = self.service     # type: ignore[attr-defined]
         self._tcp.auth_failures = 0          # type: ignore[attr-defined]
         self._tcp.bytes_served = 0           # type: ignore[attr-defined]
+        self._tcp.bytes_pushed = 0           # type: ignore[attr-defined]
         self._thread = threading.Thread(target=self._tcp.serve_forever,
                                         daemon=True, name="shuffle-server")
 
@@ -183,6 +215,10 @@ class ShuffleServer:
     @property
     def bytes_served(self) -> int:
         return self._tcp.bytes_served   # type: ignore[attr-defined]
+
+    @property
+    def bytes_pushed(self) -> int:
+        return self._tcp.bytes_pushed   # type: ignore[attr-defined]
 
     def start(self) -> "ShuffleServer":
         self._thread.start()

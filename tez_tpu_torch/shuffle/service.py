@@ -3,20 +3,19 @@
 Reference parity: tez-plugins/tez-aux-services ShuffleHandler.java:159 (the
 NM-resident shuffle server with per-reduce index lookup) + the local-disk
 short-circuit (Fetcher.java:288).  In-process deployments hand buffers over
-directly (the "local fetch" path — zero copies of host-RAM data); the
-socket server for fetches from other processes and hosts lives in
-tez_tpu_torch.shuffle.server and serves the same registry.
+directly (the "local fetch" path — zero copies of host-RAM data, and a run's
+device key lanes travel with it); the socket server for fetches from other
+processes and hosts lives in tez_tpu_torch.shuffle.server and serves the
+same registry.
 
 Keys: (path_component, spill_id) where path_component identifies a producer
 attempt's output (reference: attempt path component in the shuffle URL).
 DAG/vertex deletion tracking mirrors the reference's DeletionTracker.
 
-The port's copy of tez_tpu.shuffle.service with its write-through file
-store (the native sendfile server's, shuffle/native_server.py), less what
-needs modules that come with later slices: the tiered buffer store and the
-push landing zone.  Attaching either raises NotImplementedError, so a
-fetch probes the registry alone (tez_tpu probes the buffer store first,
-and a pushed partition's key last, only when a store is attached).
+The port's copy of tez_tpu.shuffle.service: the bare registry, the
+write-through file store (the native sendfile server's,
+shuffle/native_server.py), the tiered buffer store (store/) and the push
+landing zone (shuffle/push.py).
 """
 from __future__ import annotations
 
@@ -29,6 +28,7 @@ from tez_tpu_torch.common import epoch as epoch_registry
 from tez_tpu_torch.common import faults, tracing
 from tez_tpu_torch.common.epoch import EpochFencedError, WindowFencedError
 from tez_tpu_torch.ops.runformat import KVBatch, Run, RUN_HEADER_NBYTES
+from tez_tpu_torch.shuffle.push import PushRejected, push_key, replica_key
 
 
 def _window_fence(seam: str, app_id: str, window_id: int, stream: str,
@@ -67,12 +67,6 @@ class ShuffleDataNotFound(Exception):
     pass
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tez_tpu_torch yet: the port's shuffle "
-        f"service keeps runs in its own registry only")
-
-
 class ShuffleService:
     """Registry of completed (or pipelined-spill) runs on this host."""
 
@@ -80,6 +74,9 @@ class ShuffleService:
         self._runs: Dict[Tuple[str, int], Run] = {}
         self._lock = threading.Lock()
         self._store: Any = None
+        self._buffer: Any = None
+        self._push_admission: Any = None
+        self._push_listeners: List[Any] = []
 
     def attach_store(self, store: Any) -> None:
         """Write-through persistence (FileShuffleStore): every registered
@@ -92,21 +89,39 @@ class ShuffleService:
         return self._store is not None
 
     def attach_buffer_store(self, store: Any) -> None:
-        """Delegation to the tiered buffer store: comes with the store."""
-        raise _not_ported("the tiered buffer store (attach_buffer_store)")
+        """Delegate run storage to the tiered buffer store
+        (tez_tpu_torch.store.ShuffleBufferStore): new registrations publish
+        into its capacity-governed device/host/disk tiers and fetches serve
+        from it under leases.  Runs registered before attach stay in the
+        bare registry and keep working."""
+        self._buffer = store
 
     def buffer_store(self) -> Any:
-        return None
+        return self._buffer
 
     def attach_push_admission(self, admission: Any) -> None:
-        """The push landing zone's gatekeeper: comes with push shuffle."""
-        raise _not_ported("push admission (attach_push_admission)")
+        """Gatekeeper for eager pushes landing on this host
+        (tez_tpu_torch.shuffle.push.PushAdmissionController); None detaches —
+        push_publish then rejects everything and producers stay on the
+        pull path."""
+        self._push_admission = admission
 
     def push_admission(self) -> Any:
-        return None
+        return self._push_admission
 
-    def push_publish(self, *args: Any, **kw: Any) -> None:
-        raise _not_ported("the push landing zone (push_publish)")
+    def add_push_listener(self, fn: Any) -> None:
+        """``fn(path_component, spill_id)`` fires after every admitted
+        push publish — the merge-wake seam: consumers poke their merge
+        manager so the async merge lane reacts to pushed arrivals
+        mid-map-wave.  Listener errors are swallowed (a broken consumer
+        must not fail the producer's push)."""
+        self._push_listeners.append(fn)
+
+    def remove_push_listener(self, fn: Any) -> None:
+        try:
+            self._push_listeners.remove(fn)
+        except ValueError:
+            pass
 
     # -- producer side -------------------------------------------------------
     def register(self, path_component: str, spill_id: int, run: Run,
@@ -121,9 +136,7 @@ class ShuffleService:
         test callers) are never fenced.  Pre-crash data already registered
         stays fetchable — recovery's short-circuited consumers read it.
         In streaming mode the window coordinate is fenced the same way: a
-        straggler from a sealed window cannot register into the open one.
-        lineage, tenant, counters and use_store steer the buffer store,
-        which the port does not have: the run lands in the registry."""
+        straggler from a sealed window cannot register into the open one."""
         _window_fence("shuffle.register", app_id, window_id, stream,
                       f"{path_component}/{spill_id}")
         if epoch > 0 and epoch_registry.is_stale(app_id, epoch):
@@ -136,8 +149,26 @@ class ShuffleService:
                 f"shuffle register from stale epoch {epoch} "
                 f"(current {epoch_registry.current(app_id)}): "
                 f"{path_component}/{spill_id}")
-        with self._lock:
-            self._runs[(path_component, spill_id)] = run
+        if self._buffer is not None and use_store:
+            from tez_tpu_torch.store.buffer_store import StoreQuotaExceeded
+            try:
+                self._buffer.publish(path_component, spill_id, run,
+                                     epoch=epoch, app_id=app_id,
+                                     lineage=lineage, tenant=tenant,
+                                     counters=counters)
+            except StoreQuotaExceeded:
+                # per-tenant quota refusal is isolation, not data loss:
+                # the run stays in the bare registry (the producer's own
+                # memory), pull-served like the pre-store path
+                with self._lock:
+                    self._runs[(path_component, spill_id)] = run
+        else:
+            # use_store=False is the push path's pull backstop: the run
+            # lands in the bare registry synchronously (events may never
+            # race a missing key) and the ASYNC push later aliases the
+            # same object into the store — zero copy, no double-count
+            with self._lock:
+                self._runs[(path_component, spill_id)] = run
         tracing.event("shuffle.register", src=f"{path_component}/{spill_id}",
                       nbytes=getattr(run, "nbytes", 0))
         if self._store is not None:
@@ -151,6 +182,86 @@ class ShuffleService:
             if not still:
                 self._store.unregister_prefix(path_component)
 
+    def push_publish(self, path_component: str, spill_id: int, run: Any,
+                     partition: Optional[int] = None, epoch: int = 0,
+                     app_id: str = "", tenant: str = "",
+                     counters: Any = None, replicas: int = 1,
+                     window_id: int = 0, stream: str = "") -> None:
+        """Eager-push landing zone (docs/push_shuffle.md).
+
+        Admission-checked publish into the buffer store.  ``partition``
+        None = a same-host push of the WHOLE run under the plain
+        ``(path, spill)`` key (complete — every partition — so a consumer
+        probe can never be served a partial view); an int = one remotely
+        pushed partition under ``push_key(path, partition)`` holding a
+        single-partition run.  ``replicas`` > 1 additionally lands a coded
+        buddy copy under ``replica_key(...)`` — best-effort (quota refusal
+        skips the copy, the primary stands) and charged to the primary's
+        admission grant.  Raises PushRejected (admission said no —
+        caller retries then falls back to pull) or EpochFencedError (a
+        re-attempted mapper's stale push, rejected exactly like a stale
+        register; a stale-WINDOW push raises the WindowFencedError
+        subclass)."""
+        _window_fence("shuffle.push", app_id, window_id, stream,
+                      f"{path_component}/{spill_id}")
+        if epoch > 0 and epoch_registry.is_stale(app_id, epoch):
+            faults.fire("fence.stale_epoch",
+                        detail=f"shuffle.push {path_component}")
+            tracing.event("fence.stale_epoch", seam="shuffle.push",
+                          reason="stale_producer", msg_epoch=epoch,
+                          src=f"{path_component}/{spill_id}")
+            raise EpochFencedError(
+                f"shuffle push from stale epoch {epoch} "
+                f"(current {epoch_registry.current(app_id)}): "
+                f"{path_component}/{spill_id}")
+        if self._buffer is None or self._push_admission is None:
+            raise PushRejected(
+                0.0, "push has no landing zone on this host (no buffer "
+                     "store / admission controller attached)")
+        nbytes = int(getattr(run, "nbytes", 0))
+        self._push_admission.admit(path_component, nbytes,
+                                   counters=counters)
+        key_path = path_component if partition is None else \
+            push_key(path_component, partition)
+        from tez_tpu_torch.store.buffer_store import StoreQuotaExceeded
+        try:
+            self._buffer.publish(key_path, spill_id, run, epoch=epoch,
+                                 app_id=app_id, tenant=tenant,
+                                 counters=counters)
+        except StoreQuotaExceeded as e:
+            # surfaces like any admission refusal: the pusher backs off,
+            # retries, then abandons to the pull backstop
+            raise PushRejected(0.0, str(e)) from e
+        buddy = -1
+        if replicas > 1:
+            # coded buddy copy (docs/recovery.md): placement follows the
+            # coded-exchange ring — the buddy store for a whole-run
+            # push is the one owning coded_buddy(p, n) per partition; the
+            # in-process simulation keys both copies into the host store
+            # under distinct namespaces, same failover chain.  Best-effort
+            # — a quota refusal keeps the primary, just without the
+            # redundancy.
+            n = int(getattr(run, "num_partitions", 0) or 0)
+            if n > 1:
+                from tez_tpu_torch.parallel.mesh import coded_buddy
+                buddy = coded_buddy(0 if partition is None else partition, n)
+            try:
+                self._buffer.publish(replica_key(key_path), spill_id, run,
+                                     epoch=epoch, app_id=app_id,
+                                     tenant=tenant, counters=counters,
+                                     replica=True)
+            except StoreQuotaExceeded:
+                pass
+        tracing.event("shuffle.push", src=f"{path_component}/{spill_id}",
+                      nbytes=nbytes,
+                      partition=-1 if partition is None else partition,
+                      replicas=replicas, buddy=buddy)
+        for fn in list(self._push_listeners):
+            try:
+                fn(path_component, spill_id)
+            except Exception:       # merge-wake is advisory, never fatal
+                pass
+
     def unregister_prefix(self, prefix: str) -> int:
         """Deletion tracker: drop all outputs whose path starts with prefix
         (per-DAG / per-vertex cleanup).  Disk-backed runs (FileRun) also
@@ -162,14 +273,54 @@ class ShuffleService:
             deleter = getattr(run, "delete", None)
             if deleter is not None:
                 deleter()
+        n = len(victims)
+        if self._buffer is not None:
+            # push keys (path#pN) share the path prefix, so pushed
+            # partitions die with their DAG here too
+            n += self._buffer.unregister_prefix(prefix)
+        if self._push_admission is not None:
+            self._push_admission.release_prefix(prefix)
         if self._store is not None:
             self._store.unregister_prefix(prefix)
-        return len(victims)
+        return n
 
     # -- consumer side (local short-circuit) ---------------------------------
     def _lookup(self, path_component: str, spill_id: int) -> Optional[Any]:
+        """The run under a key: bare registry first, then the buffer
+        store (unleased peek — slicing a returned run is safe because
+        demotion never invalidates live views, see docs/store.md)."""
         with self._lock:
-            return self._runs.get((path_component, spill_id))
+            run = self._runs.get((path_component, spill_id))
+        if run is None and self._buffer is not None:
+            run = self._buffer.get(path_component, spill_id)
+        return run
+
+    def _store_probe(self, key_path: str, spill_id: int, partition: int,
+                     counters: Any) -> Optional[KVBatch]:
+        """One buffer-store probe, miss -> None (StoreKeyNotFound and a
+        concurrently-deleted backing file both count as a miss — the next
+        link in the fetch chain decides what a total miss means)."""
+        try:
+            return self._buffer.fetch_partition(
+                key_path, spill_id, partition, counters=counters)
+        except FileNotFoundError:
+            return None
+        except Exception as e:
+            if type(e).__name__ != "StoreKeyNotFound":
+                raise
+            return None
+
+    def _replica_probe(self, key_path: str, spill_id: int, partition: int,
+                       counters: Any) -> Optional[KVBatch]:
+        """Failover to the coded buddy copy of a lost primary entry.  A
+        hit is accounted as a store.replica.failover — a producer re-run
+        avoided (docs/recovery.md)."""
+        batch = self._store_probe(replica_key(key_path), spill_id,
+                                  partition, counters)
+        if batch is not None:
+            self._buffer.note_replica_failover(
+                f"{key_path}/{spill_id}", counters=counters)
+        return batch
 
     def fetch_partition(self, path_component: str, spill_id: int,
                         partition: int, counters: Any = None,
@@ -181,17 +332,49 @@ class ShuffleService:
         _window_fence("shuffle.fetch", app_id, window_id, stream,
                       f"{path_component}/{spill_id}")
         # store.replica.lost seam (consumer side): fail mode declares the
-        # PRIMARY copies gone — with no store to hold a coded replica, the
-        # fetch misses as a lost registration would
+        # PRIMARY copies gone — store entries and the producer's local
+        # registration both — forcing the coded-replica failover path, the
+        # chaos lever proving reconstruction without producer re-execution
         primary_lost = False
         try:
             faults.fire("store.replica.lost",
                         detail=f"{path_component}/{spill_id}")
         except Exception:
             primary_lost = True
-        run = None if primary_lost else self._lookup(path_component,
-                                                     spill_id)
+        if self._buffer is not None:
+            batch = None
+            if not primary_lost:
+                batch = self._store_probe(path_component, spill_id,
+                                          partition, counters)
+            if batch is None:
+                batch = self._replica_probe(path_component, spill_id,
+                                            partition, counters)
+            if batch is not None:
+                if faults.armed():
+                    batch = _maybe_corrupt(path_component, spill_id, batch)
+                return batch
+        run = None
+        if not primary_lost:
+            with self._lock:
+                run = self._runs.get((path_component, spill_id))
         if run is None:
+            # third probe: a remotely PUSHED partition — the producer has
+            # no local registration here, but its pusher may have landed
+            # this partition under push_key (a single-partition run, so
+            # partition index 0 inside the stored run); its coded replica
+            # is the last resort
+            if self._buffer is not None:
+                pk = push_key(path_component, partition)
+                batch = None
+                if not primary_lost:
+                    batch = self._store_probe(pk, spill_id, 0, counters)
+                if batch is None:
+                    batch = self._replica_probe(pk, spill_id, 0, counters)
+                if batch is not None:
+                    if faults.armed():
+                        batch = _maybe_corrupt(path_component, spill_id,
+                                               batch)
+                    return batch
             raise ShuffleDataNotFound(f"{path_component}/{spill_id}")
         try:
             batch = run.partition(partition)
@@ -241,7 +424,13 @@ class ShuffleService:
 
     def stats(self) -> Tuple[int, int]:
         with self._lock:
-            return len(self._runs), sum(r.nbytes for r in self._runs.values())
+            n = len(self._runs)
+            nbytes = sum(r.nbytes for r in self._runs.values())
+        if self._buffer is not None:
+            s = self._buffer.stats()
+            n += s["entries"]
+            nbytes += sum(s["bytes"].values())
+        return n, nbytes
 
 
 _local = ShuffleService()
@@ -256,7 +445,7 @@ def local_shuffle_service() -> ShuffleService:
 def telemetry_collector() -> Dict[str, float]:
     """Live-telemetry hook (obs/timeseries registry): registered-run
     inventory as gauges on every sampler tick — the transport plane's
-    resident footprint."""
+    resident footprint, next to the store collector's tier bytes."""
     n, nbytes = _local.stats()
     return {"shuffle.registered_runs": float(n),
             "shuffle.registered_bytes": float(nbytes)}

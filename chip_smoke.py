@@ -22,10 +22,10 @@ Phases, each checked, none allowed to fail:
    against the composite it replaced on the main path (two merge-rank
    launches and a scatter);
 2b. each binding of the host library (ops/native.py) timed on the card's
-   host at the main path's sizes (a 256 MiB tokenizer chunk of phase 11's
+   host at the main path's sizes (a 160 MiB tokenizer chunk of phase 11's
    corpus, 256 MB gathers, phase 8's 64 MB span and four of its runs) and
    held byte for byte against its plain numpy version on a cut of that
-   input (PLAIN_CUT: an eighth; half the runs for the merges), both times
+   input (PLAIN_CUT: a sixteenth; half the runs for the merges), both times
    printed;
 3. map side: 4 producers, each a DeviceSorter(num_partitions=4,
    key_width=12, 256 MB spans) fed two full spans of bench-style records
@@ -189,9 +189,35 @@ Phases, each checked, none allowed to fail:
    walls, launches and peak device memory, the journal lines replayed
    and the zombie attempt-1 actors fenced (fence.stale_epoch) are
    printed.
+18. the query layer, the joins and the custom edges: A,
+   examples/sort_merge_join.py with its defaults (2 joiners, a side
+   parallelism of 2), left the first 8 MiB of phase 11's corpus and right
+   the next 8 MiB (line-exact), the output exactly the distinct words on
+   both sides, fnv_hash_lanes and merge_path_pair launched; B,
+   examples/hash_join.py over 2^20 stream lines of one Zipf word each
+   and 16,384 distinct words drawn Zipf from the same vocabulary over
+   the broadcast edge, one (word, "1") record for each stream occurrence
+   whose word is on the hash side (a Counter golden); C, CORPUS_QUERIES
+   through one QuerySession on the card (the store on, replanning off)
+   over tools/query_corpus.generate(scale=100, seed=3), TPC-H SF 0.1's
+   row counts, each query's records its numpy oracle's, its wall and
+   join decisions printed, then nation_revenue again served from sealed
+   lineage (cache hits, the same records), QUERY_LAUNCHES' queries each
+   launching its kernels, then the aggregate pricing_summary, the
+   repartition join hot_parts and the window top_orders again in a
+   second session with the sorter's device floor at one record
+   (FLOOR_CONF), each launching fnv_hash_lanes and merge_path_pair and
+   its records the oracle's; D, the cartesian-product
+   example over 256 x 512 tokens (every pair), and OrderedWordCount
+   without the combiner (4 tokenizers, 4 summations) with
+   FairShuffleVertexManager on the summation over 8 MiB of lines whose
+   words are half one hot word, the desired task input scaled from
+   tests/test_custom_edges.py's, the counts a Counter golden's and more
+   summation tasks than the 4 configured.  Each leg's wall and launches
+   are printed.
 
 Kernel launch counts and the host library's call counts are zeroed
-before each path of phases 3-17 and read after it (phase 12's, 16 C's
+before each path of phases 3-18 and read after it (phase 12's, 16 C's
 and 17 A's are summed from their runners' stats files; phase 15(a)'s
 checks are left out): each TPU kernel's
 counterpart on the path must have been launched, and the general-query
@@ -200,7 +226,7 @@ precombine of phase 6 must call hash_sum_i64, every host merge pass of
 phases 8-10 tz_merge_emit or tz_merge_runs, phase 11's combining leg the
 word-count aggregator (tz_wc_feed) and its other leg tz_split_ws, and
 the same of phase 12's legs in their runners.  The kernels' JSON line
-reports their launches over phases 3-6 and 8-17; the
+reports their launches over phases 3-6 and 8-18; the
 line before it, {"native": ...}, the library's calls by phase and phase
 2b's times.  The last line is {"ok": true, "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -652,18 +678,19 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 # phase 2b: the host library against its plain versions
 # ---------------------------------------------------------------------------
-#: phase 2b's sizes: a tokenizer's 256 MiB chunk of phase 11's corpus
-#: layout, phase 8's 64 MB span and four of its runs, 256 MB gathers
-NATIVE_SIZES = dict(chunk_mb=256, span_mb=SPILL_SPAN_MB, runs=4,
+#: phase 2b's sizes: a tokenizer's 160 MiB chunk of phase 11's corpus
+#: (a quarter of its 640 MiB; 256 MiB until the corpus was cut from 1
+#: GiB), phase 8's 64 MB span and four of its runs, 256 MB gathers
+NATIVE_SIZES = dict(chunk_mb=160, span_mb=SPILL_SPAN_MB, runs=4,
                     gather_mb=256, vocab_size=SPILL_VOCAB)
 TINY_NATIVE = dict(chunk_mb=2, span_mb=1, runs=3, gather_mb=2,
                    vocab_size=20_000)
 #: the plain versions run on 1/PLAIN_CUT of each binding's input (the
-#: first eighth of the text, rows, records or pairs; the first half of
+#: first sixteenth of the text, rows, records or pairs; the first half of
 #: the runs), the library on all of it and on the same cut, so the cut
 #: holds the library to its plain version byte for byte while the script
 #: keeps within its time limit
-PLAIN_CUT = 8
+PLAIN_CUT = 16
 
 
 def cpu_model() -> str:
@@ -749,7 +776,7 @@ def native_phase(args, **sizes) -> list:
             agg.close()
 
     text = f"{len(chunk)} bytes of text"
-    lines = "the text's first eighth (whole lines)"
+    lines = "the text's first sixteenth (whole lines)"
     wb, wo = hold("split_ws", text,
                   lambda k: native.split_ws_native(text_head(k)),
                   lambda k: native.split_ws_plain(text_head(k)), lines)
@@ -762,7 +789,7 @@ def native_phase(args, **sizes) -> list:
                                           ones[:head(n, k)]),
          lambda k: native.hash_sum_plain(*ragged_head(wb, wo, k),
                                          ones[:head(n, k)]),
-         "the first eighth of the words")
+         "the first sixteenth of the words")
     # 256 MB gathers: ragged words, and fixed 8-byte rows
     g = int(sz["gather_mb"] * 1e6)
     cut = int(np.searchsorted(wo, min(g, int(wo[-1]))))
@@ -772,7 +799,7 @@ def native_phase(args, **sizes) -> list:
          lambda k: native.gather_ragged_native(gb, go,
                                                perm[:head(cut, k)]),
          lambda k: native.gather_ragged_plain(gb, go, perm[:head(cut, k)]),
-         "the first eighth of the permutation")
+         "the first sixteenth of the permutation")
     fixed = rng.integers(0, 256, g // 8 * 8, dtype=np.uint8)
     fperm = rng.permutation(g // 8)
     hold("gather_fixed", f"{g // 8} rows of 8 bytes",
@@ -780,7 +807,7 @@ def native_phase(args, **sizes) -> list:
                                               fperm[:head(g // 8, k)]),
          lambda k: native.gather_fixed_plain(fixed, 8,
                                              fperm[:head(g // 8, k)]),
-         "the first eighth of the permutation")
+         "the first sixteenth of the permutation")
     del wb, wo, ones, gb, go, perm, fixed, fperm, chunk
     # phase 8's spans: the host engine's partition, sort and fused sort
     span_bytes = int(sz["span_mb"] * (1 << 20))
@@ -789,7 +816,7 @@ def native_phase(args, **sizes) -> list:
     b = spans[0]
     kb, ko, vb, vo = b.key_bytes, b.key_offsets, b.val_bytes, b.val_offsets
     shape = f"{b.num_records} records, {len(kb) + len(vb)} bytes of KV"
-    records = "the span's first eighth of records"
+    records = "the span's first sixteenth of records"
     parts = hold("fnv32_partition", shape,
                  lambda k: native.fnv32_partition_native(
                      *ragged_head(kb, ko, k), NUM_PARTITIONS),
@@ -815,7 +842,7 @@ def native_phase(args, **sizes) -> list:
                                                 cand[:head(len(cand), k)]),
          lambda k: native.adjacent_equal_plain(skb, sko,
                                                cand[:head(len(cand), k)]),
-         "the first eighth of the pairs")
+         "the first sixteenth of the pairs")
     # phase 8's runs: the host engine's merges
     runs = [native.span_sort_emit_native(
         s.key_bytes, s.key_offsets, s.val_bytes, s.val_offsets,
@@ -3287,12 +3314,30 @@ def write_corpus(path: str, rng, mat, lens, nbytes: int,
     return counts
 
 
+def part_bytes(out_dir: str) -> bytes:
+    """A FileOutput directory's part files, their bytes in name order."""
+    return b"".join(
+        open(os.path.join(out_dir, f), "rb").read()
+        for f in sorted(os.listdir(out_dir)) if f.startswith("part-"))
+
+
+def part_lines(label: str, out_dir: str) -> list:
+    """The lines of a FileOutput directory's part files, _SUCCESS
+    required."""
+    check(os.path.exists(os.path.join(out_dir, "_SUCCESS")),
+          f"{label}: no _SUCCESS in {out_dir}")
+    return [line for line in part_bytes(out_dir).split(b"\n") if line]
+
+
+def word_bytes(mat, lens, ids) -> list:
+    """The vocabulary's words `ids` (rows of `mat`, `lens` bytes long)."""
+    return [mat[i, :lens[i]].tobytes() for i in ids]
+
+
 def read_wordcount(out_dir: str) -> tuple:
     """The part files of OrderedWordCount's output: their bytes in name
     order, and the (word, count) rows they hold."""
-    data = b"".join(
-        open(os.path.join(out_dir, f), "rb").read()
-        for f in sorted(os.listdir(out_dir)) if f.startswith("part-"))
+    data = part_bytes(out_dir)
     rows = [line.rsplit(b"\t", 1) for line in data.split(b"\n") if line]
     return data, [(w, int(c)) for w, c in rows]
 
@@ -3305,8 +3350,8 @@ def check_wordcount(label: str, out_dir: str, mat, lens,
     check(os.path.exists(os.path.join(out_dir, "_SUCCESS")),
           f"{label}: no _SUCCESS in {out_dir}")
     data, rows = read_wordcount(out_dir)
-    want = {mat[i, :lens[i]].tobytes(): int(golden[i])
-            for i in np.flatnonzero(golden)}
+    drawn = np.flatnonzero(golden)
+    want = dict(zip(word_bytes(mat, lens, drawn), golden[drawn].tolist()))
     got = dict(rows)
     check(len(got) == len(rows), f"{label}: a word appears twice")
     check(got == want, f"{label}: output differs from the golden "
@@ -3640,8 +3685,8 @@ def check_wordcount_parts(label: str, out_dir: str, corpus, golden,
                     n += 1
         check(n == len(got), f"{label}: a word appears twice in {name}")
         sel = np.flatnonzero((golden > 0) & (part_of == p))
-        want = {corpus.mat[i, :corpus.lens[i]].tobytes(): int(golden[i])
-                for i in sel}
+        want = dict(zip(word_bytes(corpus.mat, corpus.lens, sel),
+                        golden[sel].tolist()))
         check(got == want, f"{label}: {name} differs from its partition's "
                            f"golden ({len(got)} words against {len(want)})")
         rows += n
@@ -3758,7 +3803,8 @@ def unordered_phase(args, device="cuda", corpus=None, **sizes) -> dict:
 # phase 14: MRR over TeraSort-width records
 # ---------------------------------------------------------------------------
 #: phase 14: 128 MiB of 100-byte lines (10-byte key, TAB, 88-byte value,
-#: newline), keys Zipf(1.3) over a seeded vocabulary of 2^20
+#: newline), keys Zipf(1.3) over a seeded vocabulary of 2^20; at this size
+#: the reduce merges take the card (64 MiB stays under its floor)
 MRR_SIZES = dict(mrr_mb=128, key_vocab=1 << 20)
 TINY_MRR = dict(mrr_mb=1, key_vocab=1 << 12)
 MRR_KEY, MRR_VALUE = 10, 88
@@ -3808,12 +3854,7 @@ def mrr_phase(args, device="cuda", **sizes) -> dict:
             wall = time.perf_counter() - t0
             sync(device)
         check(state == "SUCCEEDED", f"mrr: state {state}")
-        check(os.path.exists(os.path.join(out, "_SUCCESS")),
-              "mrr: no _SUCCESS")
-        data = b"".join(open(os.path.join(out, f), "rb").read()
-                        for f in sorted(os.listdir(out))
-                        if f.startswith("part-"))
-        rows = [line.split(b"\t") for line in data.split(b"\n") if line]
+        rows = [line.split(b"\t") for line in part_lines("mrr", out)]
         totals_out = np.array([int(t) for _k, t in rows], np.int64)
         check(bool(np.all(np.diff(totals_out) >= 0)),
               "mrr: totals are not non-decreasing")
@@ -3821,7 +3862,7 @@ def mrr_phase(args, device="cuda", **sizes) -> dict:
         check(len(got) == len(rows), "mrr: a key appears twice")
         check(got == golden, f"mrr: output differs from the golden "
                              f"({len(got)} keys against {len(golden)})")
-        launches.require(device, "fnv_hash_lanes")
+        launches.require(device, "fnv_hash_lanes", "merge_path_pair")
         log(f"phase mrr: wall_s={wall:.3f} MB={records * 100 / 1e6:.1f} "
             f"records={records} keys={len(golden)}; launches "
             f"merge_path_pair {launches.counts['merge_path_pair']} "
@@ -4623,6 +4664,328 @@ def standalone_phase(args, corpus: DagCorpus, host_part: bytes,
     return dict(totals)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the query layer, the joins and the custom edges
+# ---------------------------------------------------------------------------
+#: phase 18: A SortMergeJoinExample, left the first smj_mb MiB of phase 11's
+#: corpus and right the next smj_mb (line-exact); B HashJoinExample over
+#: hash_lines stream lines of one Zipf word each against hash_words distinct
+#: words; C CORPUS_QUERIES over the corpus at query_scale (TPC-H's row counts
+#: at SF query_scale / 1000); D the cartesian product of cp_left x cp_right
+#: tokens, and OrderedWordCount with the fair shuffle over fair_mb MiB whose
+#: words are half one hot word
+QUERY_SIZES = dict(smj_mb=8, hash_lines=1 << 20, hash_words=16_384,
+                   query_scale=100, query_seed=3, cp_left=256, cp_right=512,
+                   fair_mb=8)
+TINY_QUERY = dict(smj_mb=1, hash_lines=1 << 14, hash_words=1024,
+                  query_scale=1, cp_left=16, cp_right=32, fair_mb=1,
+                  corpus_mb=2, vocab_size=20_000, chunk_lines=4)
+#: leg C's queries and the kernels each must launch on the card at the
+#: sorter's default floor (a span takes the card from 65,536 records and
+#: 1 MiB of keys) and query_scale 100: supply_chain's lineitem side and
+#: joiners, the window's and the limit's reduce merges
+QUERY_LAUNCHES = {"supply_chain": ("fnv_hash_lanes", "merge_path_pair"),
+                  "top_orders": ("merge_path_pair",),
+                  "flagged_sample": ("merge_path_pair",)}
+#: leg C's aggregate, repartition join and window run again with the
+#: device floor at one record and the key-byte floor off (the sorter's
+#: own knobs), each launching both kernels: under the default floor an
+#: aggregate's exchange carries one partial row a group a scan task (3
+#: for pricing_summary at any scale) and hot_parts' sides ~36,000 rows a
+#: task at scale 100, so they sort and merge on the host engine
+FLOOR_QUERIES = ("pricing_summary", "hot_parts", "top_orders")
+FLOOR_CONF = {"tez.runtime.tpu.device.sort.min.records": 1,
+              "tez.runtime.sort.engine.min-bytes": 0}
+#: tests/test_custom_edges.py's fair-shuffle DAG: 3,000 lines of
+#: "hotkey fillerN" (15 bytes a line) against a desired task input of
+#: 4,096; leg D keeps that ratio of text bytes to the desired size
+FAIR_TEST_BYTES, FAIR_TEST_DESIRED = 3000 * 15, 4096
+#: leg D's fair-shuffle corpus: words a line, every other one the hot word
+FAIR_WORDS_PER_LINE = 64
+
+
+def write_word_lines(path: str, corpus: DagCorpus, ids: np.ndarray,
+                     per_line: int) -> int:
+    """The corpus vocabulary's words `ids` into `path`, per_line words a
+    line joined by spaces (the last line may be short); returns the bytes
+    written."""
+    lens = corpus.lens[ids]
+    ends = np.cumsum(lens + 1)
+    text = np.full(int(ends[-1]), 32, np.uint8)
+    keep = np.arange(16)[None, :] < lens[:, None]
+    text[((ends - lens - 1)[:, None] + np.arange(16)[None, :])[keep]] = \
+        corpus.mat[ids][keep]
+    text[ends[per_line - 1::per_line] - 1] = 10
+    text[-1] = 10
+    with open(path, "wb") as fh:
+        fh.write(text.tobytes())
+    return len(text)
+
+
+def smj_leg(corpus: DagCorpus, root: str, device, sz: dict,
+            totals: collections.Counter) -> None:
+    """Leg A: SortMergeJoinExample with its defaults (2 joiners, a side
+    parallelism of 2); the output is the distinct words on both sides."""
+    from tez_tpu_torch.examples import sort_merge_join
+    label = "query A"
+    left, lbytes, lgold = corpus.slice_file("smj_left.txt", 0, sz["smj_mb"])
+    right, rbytes, rgold = corpus.slice_file("smj_right.txt", sz["smj_mb"],
+                                             2 * sz["smj_mb"])
+    out = os.path.join(root, "smj_out")
+    dag = sort_merge_join.build_dag([left], [right], out)
+    with Launches(label, totals) as launches:
+        status, wall = submit_dag(dag, {"tez.staging-dir": os.path.join(
+            root, "smj_stg")}, device)
+        sync(device)
+    check(status.state.name == "SUCCEEDED",
+          f"{label}: state {status.state.name}")
+    rows = [line.split(b"\t") for line in part_lines(label, out)]
+    check(all(v == b"1" for _w, v in rows), f"{label}: a value is not 1")
+    want = sorted(word_bytes(corpus.mat, corpus.lens,
+                             np.flatnonzero((lgold > 0) & (rgold > 0))))
+    check(sorted(w for w, _v in rows) == want,
+          f"{label}: {len(rows)} rows against {len(want)} words on both "
+          f"sides")
+    check_no_failover(label, status.counters.to_dict())
+    launches.require(device, "fnv_hash_lanes", "merge_path_pair")
+    log(f"phase {label}: wall_s={wall:.3f} MB={(lbytes + rbytes) / 1e6:.1f} "
+        f"words={int(lgold.sum())} + {int(rgold.sum())} rows={len(rows)} "
+        f"launches {json.dumps(launches.counts)}")
+
+
+def hash_leg(corpus: DagCorpus, root: str, device, sz: dict, rng,
+             totals: collections.Counter) -> None:
+    """Leg B: HashJoinExample, hash_lines stream lines of one Zipf word
+    each against hash_words distinct words drawn Zipf from the same
+    vocabulary; one (word, "1") record per matching stream occurrence."""
+    from tez_tpu_torch.examples import hash_join
+    label = "query B"
+    vocab = len(corpus.lens)
+    ids = rng.zipf(ZIPF_A, sz["hash_lines"]).astype(np.int64) % vocab
+    side = np.zeros(0, np.int64)
+    while len(side) < sz["hash_words"]:
+        draw = np.concatenate([side, rng.zipf(ZIPF_A, 16 * sz["hash_words"])
+                               .astype(np.int64) % vocab])
+        _, first = np.unique(draw, return_index=True)
+        side = draw[np.sort(first)]
+    side = side[:sz["hash_words"]]
+    stream_path = os.path.join(root, "hj_stream.txt")
+    hash_path = os.path.join(root, "hj_hash.txt")
+    write_word_lines(stream_path, corpus, ids, 1)
+    write_word_lines(hash_path, corpus, side, 1)
+    counts = np.bincount(ids, minlength=vocab)
+    hit = side[counts[side] > 0]
+    golden = collections.Counter(dict(zip(
+        word_bytes(corpus.mat, corpus.lens, hit), counts[hit].tolist())))
+    out = os.path.join(root, "hj_out")
+    dag = hash_join.build_dag([stream_path], [hash_path], out)
+    with Launches(label, totals) as launches:
+        status, wall = submit_dag(dag, {"tez.staging-dir": os.path.join(
+            root, "hj_stg")}, device)
+        sync(device)
+    check(status.state.name == "SUCCEEDED",
+          f"{label}: state {status.state.name}")
+    rows = [line.split(b"\t") for line in part_lines(label, out)]
+    check(all(v == b"1" for _w, v in rows), f"{label}: a value is not 1")
+    got = collections.Counter(w for w, _v in rows)
+    check(got == golden, f"{label}: {len(rows)} records of {len(got)} "
+                         f"words against {sum(golden.values())} of "
+                         f"{len(golden)}")
+    check_no_failover(label, status.counters.to_dict())
+    log(f"phase {label}: wall_s={wall:.3f} stream lines={len(ids)} hash "
+        f"words={len(side)} records={len(rows)} launches "
+        f"{json.dumps(launches.counts)} (the broadcast edge is unordered)")
+
+
+def run_query(s, q, c, root: str, device, oracle: list, label: str,
+              leg: collections.Counter, need=()):
+    """One corpus query through QuerySession `s`: SUCCEEDED, its records
+    the oracle's, its wall, join decisions and launches printed, and on
+    the card each kernel in `need` launched (merge_rank never)."""
+    with Launches(label, leg) as launches:
+        r = s.run(q.build(c), os.path.join(root, label.replace(" ", "_")),
+                  query_name=q.name, sink=q.sink, timeout=1200)
+        sync(device)
+    check(r.state == "SUCCEEDED", f"{label}: state {r.state}")
+    got = r.read_output()
+    check(got == oracle, f"{label}: {len(got)} records against the "
+                         f"oracle's {len(oracle)}")
+    joins = [(d["choice"], d["basis"]) for d in r.decisions
+             if d["kind"] == "join_strategy"]
+    log(f"phase {label}: wall_s={r.wall_s:.3f} records={len(got)} joins "
+        f"{json.dumps(joins)} cache_hits={r.cache_hits} launches "
+        f"{json.dumps(launches.counts)}")
+    launches.require(device, *need)
+    return r
+
+
+def corpus_leg(root: str, device, sz: dict,
+               totals: collections.Counter) -> None:
+    """Leg C: every CORPUS_QUERIES query through one QuerySession on
+    `device` (the store on, replanning off so a rerun plans the same
+    DAG), each equal to its numpy oracle and QUERY_LAUNCHES' queries
+    launching their kernels; then nation_revenue again, served from the
+    store's sealed lineage; then FLOOR_QUERIES in a second session at
+    FLOOR_CONF, each launching both kernels."""
+    from tez_tpu_torch.query import QuerySession
+    from tez_tpu_torch.store import reset_store
+    from tez_tpu_torch.tools import query_corpus
+    t0 = time.perf_counter()
+    c = query_corpus.generate(os.path.join(root, "tpch"),
+                              scale=sz["query_scale"], seed=sz["query_seed"])
+    rows = {t: len(c.columns(t)[query_corpus.SCHEMAS[t][0]])
+            for t in query_corpus.SCHEMAS}
+    log(f"query C: corpus at scale {sz['query_scale']} {json.dumps(rows)} "
+        f"rows, {sum(map(os.path.getsize, c.paths.values()))} bytes, made "
+        f"in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    queries = {q.name: q for q in query_corpus.CORPUS_QUERIES}
+    oracles = {name: q.oracle(c) for name, q in queries.items()}
+    log(f"query C: oracles in {time.perf_counter() - t0:.3f} s")
+    reset_store()
+    conf = {"tez.staging-dir": os.path.join(root, "q_stg"),
+            "tez.runtime.store.enabled": True,
+            "tez.query.replan.enabled": False}
+    leg: collections.Counter = collections.Counter()
+    with QuerySession("phase18", conf, device=device) as s:
+        for name, q in queries.items():
+            run_query(s, q, c, root, device, oracles[name],
+                      f"query C {name}", leg, QUERY_LAUNCHES.get(name, ()))
+        name = "nation_revenue"
+        r = run_query(s, queries[name], c, root, device, oracles[name],
+                      f"query C rerun {name}", leg)
+        check(r.cache_hits > 0, f"query C rerun {name}: no cache hit")
+    reset_store()
+    conf = {"tez.staging-dir": os.path.join(root, "q_floor_stg"),
+            "tez.query.replan.enabled": False, **FLOOR_CONF}
+    with QuerySession("phase18-floor", conf, device=device) as s:
+        for name in FLOOR_QUERIES:
+            run_query(s, queries[name], c, root, device, oracles[name],
+                      f"query C floor {name}", leg,
+                      ("fnv_hash_lanes", "merge_path_pair"))
+    totals.update(leg)
+    log(f"query C: launches over the leg {json.dumps(dict(leg))}")
+
+
+def custom_edge_leg(corpus: DagCorpus, root: str, device, sz: dict, rng,
+                    totals: collections.Counter) -> None:
+    """Leg D: the cartesian-product example (every pair of the two token
+    files), then OrderedWordCount without the combiner and with
+    FairShuffleVertexManager on the summation over text whose words are
+    half one hot word: the hot partition split, the counts exact."""
+    from tez_tpu_torch.common.payload import VertexManagerPluginDescriptor
+    from tez_tpu_torch.examples import cartesian_product, ordered_wordcount
+    label = "query D cartesian"
+    n_left, n_right = sz["cp_left"], sz["cp_right"]
+    tokens = word_bytes(corpus.mat, corpus.lens, range(n_left + n_right))
+    paths = []
+    for name, toks in (("left", tokens[:n_left]), ("right", tokens[n_left:])):
+        paths.append(os.path.join(root, f"cp_{name}.txt"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(b"\n".join(b" ".join(toks[i:i + 16])
+                                for i in range(0, len(toks), 16)) + b"\n")
+    out = os.path.join(root, "cp_out")
+    with Launches(label, totals):
+        t0 = time.perf_counter()
+        state = cartesian_product.run(
+            paths[0], paths[1], out, conf={"tez.staging-dir": os.path.join(
+                root, "cp_stg")}, device=device)
+        wall = time.perf_counter() - t0
+        sync(device)
+    check(state == "SUCCEEDED", f"{label}: state {state}")
+    pairs = sorted(line.split(b"\t")[0] for line in part_lines(label, out))
+    check(pairs == sorted(a + b"|" + b for a in tokens[:n_left]
+                          for b in tokens[n_left:]),
+          f"{label}: {len(pairs)} pairs against {n_left * n_right}")
+    log(f"phase {label}: wall_s={wall:.3f} pairs={len(pairs)}")
+
+    label = "query D fair shuffle"
+    vocab = len(corpus.lens)
+    hot = 0
+    # about fair_mb of text: each other word the hot one, the rest Zipf
+    per_pair = float(corpus.lens[hot] + 1 + np.mean(corpus.lens) + 1)
+    n = int(sz["fair_mb"] * (1 << 20) / per_pair) // \
+        FAIR_WORDS_PER_LINE * FAIR_WORDS_PER_LINE
+    ids = np.zeros(2 * n, np.int64)
+    ids[1::2] = 1 + rng.zipf(ZIPF_A, n).astype(np.int64) % (vocab - 1)
+    counts = np.bincount(ids, minlength=vocab)
+    path = os.path.join(root, "fair.txt")
+    written = write_word_lines(path, corpus, ids, FAIR_WORDS_PER_LINE)
+    desired = int(FAIR_TEST_DESIRED * written / FAIR_TEST_BYTES)
+    out = os.path.join(root, "fair_out")
+    dag = ordered_wordcount.build_dag([path], out, tokenizer_parallelism=4,
+                                      summation_parallelism=4,
+                                      combine=False)
+    dag.vertices["summation"].set_vertex_manager_plugin(
+        VertexManagerPluginDescriptor.create(
+            "tez_tpu_torch.library.fair_shuffle:FairShuffleVertexManager",
+            payload={"desired_task_input_size": desired,
+                     "min_fraction": 0.9, "max_fraction": 0.9}))
+    with Launches(label, totals) as launches:
+        status, wall = submit_dag(dag, {"tez.staging-dir": os.path.join(
+            root, "fair_stg")}, device)
+        sync(device)
+    check(status.state.name == "SUCCEEDED",
+          f"{label}: state {status.state.name}")
+    rows = [line.rsplit(b"\t", 1) for line in part_lines(label, out)]
+    got: collections.Counter = collections.Counter()
+    for w, c in rows:
+        got[w] += int(c)
+    drawn = np.flatnonzero(counts)
+    want = collections.Counter(dict(zip(
+        word_bytes(corpus.mat, corpus.lens, drawn), counts[drawn].tolist())))
+    check(got == want, f"{label}: {len(got)} words against {len(want)}")
+    tasks = status.vertex_status["summation"].progress.total_task_count
+    check(tasks > 4, f"{label}: {tasks} summation tasks, the hot partition "
+                     f"was not split")
+    check_no_failover(label, status.counters.to_dict())
+    launches.require(device, "fnv_hash_lanes")
+    log(f"phase {label}: wall_s={wall:.3f} MB={written / 1e6:.1f} "
+        f"words={int(counts.sum())} hot={int(counts[hot])} desired task "
+        f"input {desired} B, summation tasks {tasks} (4 configured), "
+        f"{len(rows)} rows for {len(want)} words; launches "
+        f"{json.dumps(launches.counts)}")
+
+
+def query_phase(args, device="cuda", corpus=None, **sizes) -> dict:
+    """Phase 18 (module docstring): legs A-D, A over prefixes of `corpus`
+    (phase 11's; made here when None).  Returns {"launches": ...,
+    "legs": {leg: wall s}}."""
+    sz = dict(QUERY_SIZES, **sizes)
+    if corpus is None:
+        marks = (sz["smj_mb"], 2 * sz["smj_mb"])
+        with tempfile.TemporaryDirectory(prefix="tez_query_") as root:
+            return query_phase(args, device, DagCorpus(
+                root, args, marks_mb=marks, **dict(
+                    {"corpus_mb": max(marks)}, **corpus_sizes(sz))),
+                **sizes)
+    from tez_tpu_torch.ops import async_stage
+    from tez_tpu_torch.ops.async_stage import process_breaker
+    totals: collections.Counter = collections.Counter()
+    rng = np.random.default_rng(args.seed + 18)
+    root = os.path.join(corpus.root, "query")
+    os.makedirs(root, exist_ok=True)
+    async_stage.reset_process_breaker()
+    legs = {}
+    for leg, run in (
+            ("A", lambda: smj_leg(corpus, root, device, sz, totals)),
+            ("B", lambda: hash_leg(corpus, root, device, sz, rng, totals)),
+            ("C", lambda: corpus_leg(root, device, sz, totals)),
+            ("D", lambda: custom_edge_leg(corpus, root, device, sz, rng,
+                                          totals))):
+        before = collections.Counter(totals)
+        t0 = time.perf_counter()
+        run()
+        legs[leg] = time.perf_counter() - t0
+        log(f"query {leg}: leg wall_s={legs[leg]:.3f} launches "
+            f"{json.dumps(dict(totals - before))}")
+    br = process_breaker()
+    check(br.state == "closed" and br.trips == 0,
+          f"query: breaker {br.state}, {br.trips} trips")
+    log("query: legs A-D passed")
+    return {"launches": dict(totals), "legs": legs}
+
+
 class SettableClock:
     """A clock that stands still until advanced: the breaker's cooldown
     in phase 7 elapses when the script says so, not by wall time."""
@@ -4737,11 +5100,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     log(f"dag phase on {card}")
     with tempfile.TemporaryDirectory(prefix="tez_dag_") as dag_root:
-        # phases 11-13 and 15 run over one corpus
+        # phases 11-13, 15 and 18 run over one corpus
         sz = UNORDERED_SIZES
         corpus = DagCorpus(dag_root, args, marks_mb=(
             sz["a_mb"], sz["b_mb"], sz["c_mb"], 2 * sz["c_mb"],
-            3 * sz["c_mb"], MESH_SIZES["mesh_mb"]))
+            3 * sz["c_mb"], MESH_SIZES["mesh_mb"], QUERY_SIZES["smj_mb"],
+            2 * QUERY_SIZES["smj_mb"]))
         phase11: dict = {}
         dag_launches = dag_phase(args, corpus=corpus, legs_out=phase11)
         log(f"dag: {time.perf_counter() - t0:.3f} s, launches "
@@ -4784,13 +5148,20 @@ def main(argv=None) -> int:
         log(f"standalone: {time.perf_counter() - t0:.3f} s, launches "
             f"{json.dumps(standalone_launches)}, host library "
             f"{phase_native('standalone')}")
+        t0 = time.perf_counter()
+        log(f"query phase on {card}")
+        query = query_phase(args, corpus=corpus)
+        log(f"query: {time.perf_counter() - t0:.3f} s, launches "
+            f"{json.dumps(query['launches'])}, legs s "
+            f"{json.dumps({k: round(v, 3) for k, v in query['legs'].items()})}"
+            f", host library {phase_native('query')}")
     launches = collections.Counter(launches)
     launches.update(spill_launches)
     launches.update(merge_launches)
     launches.update(task_launches)
     launches.update(dag_launches)
     launches.update(remote_launches)
-    for later in (unordered, mrr, mesh):
+    for later in (unordered, mrr, mesh, query):
         launches.update(later["launches"])
     launches.update(store_launches)
     launches.update(standalone_launches)
@@ -4802,16 +5173,18 @@ def main(argv=None) -> int:
                 f"{launches[kname]} launches on the slice, the spill "
                 f"path, the merge legs, the tasks, the DAG, its runner "
                 f"processes, the unordered edge, MRR, the mesh DAGs, "
-                f"the store and push DAGs and the standalone AM's pods "
-                f"and recovered AM")
+                f"the store and push DAGs, the standalone AM's pods and "
+                f"recovered AM, and the query phase's joins, corpus "
+                f"queries and custom edges")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
         f"counterpart, held in phase 2): {launches['merge_rank']} launches "
         f"on the slice, the spill path, the merge legs, the tasks, the DAG, "
         f"its runner processes, the unordered edge, MRR, the mesh DAGs, "
-        f"the store and push DAGs and the standalone AM's pods and "
-        f"recovered AM")
+        f"the store and push DAGs, the standalone AM's pods and "
+        f"recovered AM, and the query phase's joins, corpus queries and "
+        f"custom edges")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

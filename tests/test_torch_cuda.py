@@ -1567,3 +1567,94 @@ def test_recovered_am_on_the_card(cuda, tmp_path):
     launches = chip_smoke.recovery_leg(args, corpus, host_part, "cuda", sz,
                                        path, nbytes, golden)
     assert launches["merge_path_pair"] > 0 and launches["merge_rank"] == 0
+
+
+def test_joins_and_supply_chain_on_the_card_match_host(cuda, tmp_path):
+    """SortMergeJoinExample over two Zipf word files of 500,000 words and
+    the corpus's supply_chain query at scale 60 through QuerySession, each
+    on the card and on the host: the same part files byte for byte, and
+    the card runs launched both kernels (and not the general merge rank).
+    A span takes the card from 65,536 records and 1 MiB of keys: a side
+    task's 250,000 six-byte words, a lineitem scan task's 180,000 eight-byte
+    order keys."""
+    from tez_tpu_torch.examples import sort_merge_join
+    from tez_tpu_torch.ops.async_stage import reset_process_breaker
+    from tez_tpu_torch.query import QuerySession
+    from tez_tpu_torch.tools import query_corpus
+    reset_process_breaker()
+    rng = np.random.default_rng(14)
+    sides = []
+    for name in ("left", "right"):
+        ids = rng.zipf(1.3, 500_000) % 50_000
+        path = tmp_path / f"{name}.txt"
+        path.write_text("\n".join(" ".join(f"w{i:05d}" for i in ids[j::40])
+                                  for j in range(40)) + "\n")
+        sides.append([str(path)])
+    corpus = query_corpus.generate(str(tmp_path / "corpus"), scale=60,
+                                   seed=3)
+    q = next(q for q in query_corpus.CORPUS_QUERIES
+             if q.name == "supply_chain")
+
+    def parts(out):
+        return {f: open(os.path.join(out, f), "rb").read()
+                for f in sorted(os.listdir(out)) if f.startswith("part-")}
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launches()
+        conf = {"tez.staging-dir": str(tmp_path / dev / "smj")}
+        out = str(tmp_path / dev / "smj_out")
+        assert sort_merge_join.run(*sides, out, conf=conf,
+                                   device=dev) == "SUCCEEDED"
+        smj = parts(out)
+        with QuerySession("q", {"tez.staging-dir": str(tmp_path / dev / "q"),
+                                "tez.am.local.num-containers": 4},
+                          device=dev) as s:
+            r = s.run(q.build(corpus), str(tmp_path / dev / "q_out"),
+                      query_name=q.name, sink=q.sink)
+        assert r.state == "SUCCEEDED" and r.read_output() == q.oracle(corpus)
+        got[dev] = (smj, parts(r.output_path), dict(kernels.launches))
+    assert got["cuda"][:2] == got["cpu"][:2] and got["cuda"][0]
+    launches = got["cuda"][2]
+    assert launches["fnv_hash_lanes"] > 0
+    assert launches["merge_path_pair"] > 0
+    assert launches["merge_rank"] == 0
+
+
+def test_floor_queries_on_the_card_match_host(cuda, tmp_path):
+    """Phase 18's aggregate, repartition join and window
+    (chip_smoke.FLOOR_QUERIES) at scale 10 through QuerySession with the
+    sorter's device floor at one record (chip_smoke.FLOOR_CONF), on the
+    card and on the host: the same part files byte for byte, each the
+    oracle's records, and each card run launched both kernels (and not
+    the general merge rank)."""
+    import chip_smoke
+    from tez_tpu_torch.ops.async_stage import reset_process_breaker
+    from tez_tpu_torch.query import QuerySession
+    from tez_tpu_torch.tools import query_corpus
+    reset_process_breaker()
+    corpus = query_corpus.generate(str(tmp_path / "corpus"), scale=10,
+                                   seed=3)
+    queries = {q.name: q for q in query_corpus.CORPUS_QUERIES}
+    got = {}
+    for dev in ("cuda", "cpu"):
+        conf = {"tez.staging-dir": str(tmp_path / dev / "q"),
+                **chip_smoke.FLOOR_CONF}
+        with QuerySession("q", conf, device=dev) as s:
+            for name in chip_smoke.FLOOR_QUERIES:
+                q = queries[name]
+                kernels.reset_launches()
+                r = s.run(q.build(corpus), str(tmp_path / dev / name),
+                          query_name=name, sink=q.sink)
+                assert r.state == "SUCCEEDED"
+                assert r.read_output() == q.oracle(corpus)
+                got[dev, name] = (
+                    {f: open(os.path.join(r.output_path, f), "rb").read()
+                     for f in sorted(os.listdir(r.output_path))
+                     if f.startswith("part-")}, dict(kernels.launches))
+    for name in chip_smoke.FLOOR_QUERIES:
+        assert got["cuda", name][0] == got["cpu", name][0], name
+        launches = got["cuda", name][1]
+        assert launches["fnv_hash_lanes"] > 0, name
+        assert launches["merge_path_pair"] > 0, name
+        assert launches["merge_rank"] == 0, name

@@ -131,7 +131,13 @@ def test_import_guard_no_jax_no_tez_tpu():
                      "examples.simple_session", "examples.mrr",
                      "store", "store.buffer_store", "shuffle.push",
                      "am.cluster_binding", "am.client_server",
-                     "client.remote", "am.recovery"):
+                     "client.remote", "am.recovery", "query",
+                     "query.logical", "query.feedback", "query.planner",
+                     "query.processors", "query.session", "tools",
+                     "tools.query_corpus", "examples.sort_merge_join",
+                     "examples.hash_join", "examples.cartesian_product",
+                     "examples.driver", "library.cartesian_product",
+                     "library.fair_shuffle"):
             assert "tez_tpu_torch." + name in names, name
         # a DAG through the port resolves every descriptor string it
         # carries (a string naming tez_tpu would load it here)

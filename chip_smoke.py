@@ -22,12 +22,12 @@ Phases, each checked, none allowed to fail:
    against the composite it replaced on the main path (two merge-rank
    launches and a scatter);
 2b. each binding of the host library (ops/native.py) timed on the card's
-   host at the main path's sizes (a 160 MiB tokenizer chunk of phase 11's
-   corpus, 256 MB gathers, phase 8's 64 MB span and four of its runs) and
+   host at the main path's sizes (an 80 MiB tokenizer chunk of phase 11's
+   corpus, 64 MB gathers, phase 8's 64 MB span and four of its runs) and
    held byte for byte against its plain numpy version on a cut of that
    input (PLAIN_CUT: a sixteenth; half the runs for the merges), both times
    printed;
-3. map side: 4 producers, each a DeviceSorter(num_partitions=4,
+3. map side: 2 producers, each a DeviceSorter(num_partitions=4,
    key_width=12, 256 MB spans) fed two full spans of bench-style records
    (12-byte Zipf(1.3) keys "w" + 11 digits over a 50k vocabulary, 8-byte
    values) and flushed, synchronous spans;
@@ -55,7 +55,7 @@ Phases, each checked, none allowed to fail:
    one, each with its DeviceFailover counters moved;
 8. the spilling map side at the repo's spill-benchmark shape
    (tez_tpu/tools/spill_bench.py, SPILL_r05.json; half its 512 MB a
-   producer, 2 producers of its 4): each writing 256 MB of KV (1-16 byte
+   producer, 1 producer of its 4): each writing 256 MB of KV (1-16 byte
    Zipf(1.3) words over a 2,000,000-word
    vocabulary, each value the record's index as a big-endian long, no
    combiner) into DeviceSorter(num_partitions=4, key_width=16, 64 MB
@@ -215,9 +215,45 @@ Phases, each checked, none allowed to fail:
    tests/test_custom_edges.py's, the counts a Counter golden's and more
    summation tasks than the 4 configured.  Each leg's wall and launches
    are printed.
+19. streaming, the SLO watchdog and exposition, speculation and the AM's
+   services: A and B on one stream, DAGAppMaster(device="cuda").
+   open_stream with tests/test_streaming.py's window template (2
+   StreamWindowSourceProcessor tasks, 1 StreamWindowSinkProcessor, the
+   ordered edge) over 3 windows of 2^19 records {"k": word, "v": 1}, the
+   words drawn Zipf(1.3) from phase 11's vocabulary: attempt 1 ingests
+   windows 1 and 2 and the start of 3 and crashes while window 2's
+   commit bracket is open (a stream.window.commit delay rule holds it),
+   then DAGAppMaster(attempt=2).recover_and_resume(): window 1 stays
+   sealed, window 2 is replayed and rolled forward, the open spool's
+   records reach window 3, drain() commits [1, 2, 3], exactly one
+   WINDOW_COMMIT_FINISHED per window across both journals, each window's
+   w<N>.part0 a Counter golden's byte for byte, and each window DAG
+   (window 2's replay too) launching fnv_hash_lanes and merge_path_pair;
+   then a stream of 2 small windows on an AM with
+   tez.am.slo.window.p95-ms 1: exactly one TENANT_SLO_BREACH under the
+   stream's name (beside the session aggregate's), its series in
+   render_prometheus and in obs.exposition.render_text (stream= label),
+   the line counts printed; C, OrderedWordCount (4 tokenizers, 4
+   summations, no combiner, io.sort.mb 4) over the first 16 MiB of phase
+   11's corpus with speculation, the dag-aware scheduler, 4 dispatcher
+   shards, the lock-order witness and a generous submit SLO target,
+   tokenizer 0's first attempt (HeldTokenProcessor) writing its split,
+   then holding for up to 20 s once its sorter dispatched a span on the
+   card: the DAG SUCCEEDED well inside the hold, NUM_SPECULATIONS >= 1
+   with the sibling _1 the winner, the counts the golden's, both
+   kernels launched, no lock-order violation, no SLO breach; the loser,
+   killed with its span plane open (a span sorted on the card, its stream
+   pair held, its run kept for the flush), aborts its output:
+   it holds no stream pair more than before the DAG, leaves the breaker
+   closed, registers and publishes nothing.  Then the abort with a span
+   in flight: an async DeviceSorter shipping each span as it completes
+   writes 3 spans, span 1's completion held by a device.dispatch.delay
+   rule, and abort() runs inside the hold: it returns only once that
+   span completed, nothing ships after it began, the pair goes back, no
+   run is left.  C runs first, then A and B.
 
 Kernel launch counts and the host library's call counts are zeroed
-before each path of phases 3-18 and read after it (phase 12's, 16 C's
+before each path of phases 3-19 and read after it (phase 12's, 16 C's
 and 17 A's are summed from their runners' stats files; phase 15(a)'s
 checks are left out): each TPU kernel's
 counterpart on the path must have been launched, and the general-query
@@ -226,7 +262,7 @@ precombine of phase 6 must call hash_sum_i64, every host merge pass of
 phases 8-10 tz_merge_emit or tz_merge_runs, phase 11's combining leg the
 word-count aggregator (tz_wc_feed) and its other leg tz_split_ws, and
 the same of phase 12's legs in their runners.  The kernels' JSON line
-reports their launches over phases 3-6 and 8-18; the
+reports their launches over phases 3-6 and 8-19; the
 line before it, {"native": ...}, the library's calls by phase and phase
 2b's times.  The last line is {"ok": true, "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -236,6 +272,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib
 import json
 import math
 import os
@@ -255,12 +292,12 @@ WORD_VOCAB = 100_000
 #: phase 8's scale: spill_bench's 2,000,000-word vocabulary and
 #: io.sort.mb=64 (SPILL_r05.json), with 256 MB of map output a producer
 #: (cut from spill_bench's 512 MB to keep the script within its time
-#: limit; most spans still spill), and 2 producers (cut from 4 for the
+#: limit; most spans still spill), and 1 producer (cut from 4 for the
 #: same reason: each producer sorts, spills and merges on its own)
 SPILL_VOCAB = 2_000_000
 SPILL_SPAN_MB = 64
 SPILL_PRODUCER_MB = 256
-SPILL_PRODUCERS = 2
+SPILL_PRODUCERS = 1
 ZIPF_A = 1.3
 #: the value of every word in the combiner leg: the long 1 (VarLongSerde)
 ONE_LONG = np.frombuffer((1 + (1 << 63)).to_bytes(8, "big"), np.uint8)
@@ -678,11 +715,12 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 # phase 2b: the host library against its plain versions
 # ---------------------------------------------------------------------------
-#: phase 2b's sizes: a tokenizer's 160 MiB chunk of phase 11's corpus
-#: (a quarter of its 640 MiB; 256 MiB until the corpus was cut from 1
-#: GiB), phase 8's 64 MB span and four of its runs, 256 MB gathers
-NATIVE_SIZES = dict(chunk_mb=160, span_mb=SPILL_SPAN_MB, runs=4,
-                    gather_mb=256, vocab_size=SPILL_VOCAB)
+#: phase 2b's sizes: half a tokenizer's 160 MiB chunk of phase 11's 640
+#: MiB corpus, phase 8's 64 MB span and four of its runs, 64 MB gathers
+#: (the chunk and the gathers cut from 160 MiB and 256 MB when phase 19
+#: came)
+NATIVE_SIZES = dict(chunk_mb=80, span_mb=SPILL_SPAN_MB, runs=4,
+                    gather_mb=64, vocab_size=SPILL_VOCAB)
 TINY_NATIVE = dict(chunk_mb=2, span_mb=1, runs=3, gather_mb=2,
                    vocab_size=20_000)
 #: the plain versions run on 1/PLAIN_CUT of each binding's input (the
@@ -790,7 +828,7 @@ def native_phase(args, **sizes) -> list:
          lambda k: native.hash_sum_plain(*ragged_head(wb, wo, k),
                                          ones[:head(n, k)]),
          "the first sixteenth of the words")
-    # 256 MB gathers: ragged words, and fixed 8-byte rows
+    # gather_mb gathers: ragged words, and fixed 8-byte rows
     g = int(sz["gather_mb"] * 1e6)
     cut = int(np.searchsorted(wo, min(g, int(wo[-1]))))
     gb, go = wb[:int(wo[cut])], wo[:cut + 1]
@@ -1802,12 +1840,14 @@ MERGE_FETCHERS = 8
 #: merge threshold once: 13 segments of ~16.2 MiB with their offsets pass
 #: 0.9 x 230.4 MiB, the other 11 do not).  Leg C: 48 segments of 1 MiB
 #: against a 16 MiB budget at merge factor 4.  Leg D: two sorters of 2
-#: spans of 16 MB each (cut from 4), a 16 MiB merge budget.
+#: spans of 8 MB each (cut from 4 spans, then from 16 MB spans when
+#: phase 19 came), a 16 MiB merge budget; leg E's hang 3 s (10 s until
+#: then) against the same 500 ms watchdog.
 MERGE_SIZES = dict(vocab_size=SPILL_VOCAB, budget=int(256 * (1 << 20) * 0.9),
                    device_min_records=1 << 16, seg_mb=8, segments_a=64,
                    skew_mb=64, skews_a=2, locals_a=4, segments_b=32,
                    c_seg_mb=1, c_segments=48, c_budget_mb=16, d_vocab=100_000,
-                   d_span_mb=16, d_spans=2, d_budget_mb=16, hang_ms=10_000)
+                   d_span_mb=8, d_spans=2, d_budget_mb=16, hang_ms=3_000)
 #: the same legs at a size the plain versions run in seconds: every size
 #: and the budgets cut 640 times, so each leg crosses its thresholds as
 #: at full size, and a lower device floor keeps the merges on the device
@@ -4986,6 +5026,664 @@ def query_phase(args, device="cuda", corpus=None, **sizes) -> dict:
     return {"launches": dict(totals), "legs": legs}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: streaming, the SLO watchdog and exposition, speculation and the
+# AM's services
+# ---------------------------------------------------------------------------
+#: phase 19: A and B `windows` windows of `window` records ({"k": word,
+#: "v": 1}, the words drawn Zipf(1.3) from phase 11's vocabulary) through
+#: an AM crash inside window 2's commit bracket (the commit held
+#: `hold_ms`), then a stream of `slo_windows` windows of `slo_window`
+#: records on an AM with a 1 ms window p95 target; C OrderedWordCount over
+#: the first spec_mb MiB of phase 11's corpus at io.sort.mb spec_sort_mb
+#: (each tokenizer dispatches a span while it writes, over the device
+#: floor) with tokenizer 0's first attempt held up to spec_delay_ms once
+#: its sorter dispatched a span, then 3 spans of abort_span_mb through an
+#: async sorter whose span 1 is held abort_hold_ms in its completion while
+#: the sorter aborts
+STREAM_SIZES = dict(window=1 << 19, windows=3, slo_window=4096,
+                    slo_windows=2, hold_ms=2_000, spec_mb=16,
+                    spec_sort_mb=4, spec_delay_ms=20_000, abort_span_mb=16,
+                    abort_hold_ms=1_500, conf={})
+#: a size the plain versions run in seconds (the CPU rehearsal); its
+#: windows cross the device floor only with FLOOR_CONF in `conf` (the
+#: abort's spans of 3 MB clear it as they are); each tokenizer's 0.5 MiB
+#: of lines fills one span of 1 MB while it writes
+TINY_STREAM = dict(window=1 << 11, windows=3, slo_window=64, slo_windows=2,
+                   hold_ms=500, spec_mb=2, spec_sort_mb=1,
+                   spec_delay_ms=20_000, abort_span_mb=3, abort_hold_ms=500,
+                   conf={})
+#: the stream AMs: tests/test_streaming.py's session
+STREAM_AM_CONF = {"tez.am.local.num-containers": 4,
+                  "tez.am.session.max-concurrent-dags": 2,
+                  "tez.am.session.queue-size": 8}
+#: leg C: the AM's services and tests/test_speculation_estimators.py's
+#: race settings
+SPEC_CONF = {"tez.am.speculation.enabled": True,
+             "tez.am.legacy.speculative.slowtask.threshold": 1.0,
+             "tez.am.soonest.retry.after.no.speculate": 200,
+             "tez.am.task.scheduler.class": "dag-aware",
+             "tez.am.concurrent.dispatcher.shards": 4,
+             "tez.debug.lockorder": True,
+             "tez.am.slo.submit.p95-ms": 600_000.0}
+WINDOW_LEDGER = ("WINDOW_COMMIT_STARTED", "WINDOW_COMMIT_FINISHED",
+                 "WINDOW_COMMIT_ABORTED")
+
+
+def stream_plan(root: str, name: str, parallelism: int = 2):
+    """tests/test_streaming.py's window template in `root`'s classes:
+    `parallelism` StreamWindowSourceProcessor tasks, one
+    StreamWindowSinkProcessor, the ordered scatter-gather edge."""
+    api = dag_api(root)
+    d, p = api.dag, api.payload
+    from_pkg = f"{root}.library."
+    source = d.Vertex.create("source", p.ProcessorDescriptor.create(
+        from_pkg + "streaming:StreamWindowSourceProcessor"), parallelism)
+    sink = d.Vertex.create("sink", p.ProcessorDescriptor.create(
+        from_pkg + "streaming:StreamWindowSinkProcessor"), 1)
+    edge = api.edge_config.new_builder("bytes", "long").build()
+    dag = d.DAG.create(name).add_vertex(source).add_vertex(sink)
+    dag.add_edge(d.Edge.create(source, sink,
+                               edge.create_default_edge_property()))
+    return dag.create_dag_plan()
+
+
+def stream_spec(root: str, name: str, out_root: str, **conf):
+    return importlib.import_module(f"{root}.am.streaming").StreamSpec(
+        name=name, plan=stream_plan(root, f"{name}-template"),
+        output_dir=os.path.join(out_root, name), conf=conf)
+
+
+def stream_am(root: str, app_id: str, staging: str, device, attempt=1,
+              **conf):
+    """A started DAGAppMaster of `root` for streams (device is the port's;
+    tez_tpu's AM takes none)."""
+    C = importlib.import_module(f"{root}.common.config")
+    kw = {} if root == "tez_tpu" else {"device": device}
+    am = importlib.import_module(f"{root}.am.app_master").DAGAppMaster(
+        app_id, C.TezConfiguration(dict(
+            STREAM_AM_CONF, **conf, **{"tez.staging-dir": staging})),
+        attempt=attempt, **kw)
+    am.start()
+    return am
+
+
+def window_parts(records: list, window: int) -> list:
+    """Each window's expected part file: the records cut every `window`,
+    the last window the rest, each "key total" line in key byte order."""
+    out = []
+    for lo in range(0, len(records), window):
+        totals = collections.Counter()
+        for r in records[lo:lo + window]:
+            if isinstance(r, dict) and "k" in r:
+                totals[r["k"].encode()] += r.get("v", 1)
+        out.append("".join(f"{k.decode()} {v}\n"
+                           for k, v in sorted(totals.items())).encode())
+    return out
+
+
+def stream_parts(out_dir: str) -> dict:
+    """The committed (final-named) part files of a stream's output."""
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        if not name.startswith("."):
+            with open(os.path.join(out_dir, name), "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+def window_ledger(events) -> list:
+    """(record type, window id, replayed) of each window commit record."""
+    return [(ev.event_type.name, ev.data["window_id"],
+             ev.data.get("replayed", False)) for ev in events
+            if ev.event_type.name in WINDOW_LEDGER]
+
+
+def wait_for(pred, what: str, timeout: float = 600.0) -> None:
+    deadline = time.time() + timeout
+    while not pred():
+        check(time.time() < deadline, f"{what} never happened")
+        time.sleep(0.005)
+
+
+def finished_windows(am) -> int:
+    return sum(1 for ev in list(am.logging_service.events)
+               if ev.event_type.name == "WINDOW_COMMIT_FINISHED")
+
+
+def window_records(corpus: DagCorpus, rng, n: int) -> list:
+    """n records {"k": word, "v": 1}, the words drawn Zipf(1.3) from
+    phase 11's vocabulary."""
+    ids = rng.zipf(ZIPF_A, n) % len(corpus.lens)
+    uniq, inv = np.unique(ids, return_inverse=True)
+    words = [bytes(corpus.mat[i, :corpus.lens[i]]).decode() for i in uniq]
+    return [{"k": words[j], "v": 1} for j in inv.tolist()]
+
+
+def check_parts(label: str, out_dir: str, goldens: list) -> None:
+    parts = stream_parts(out_dir)
+    want = {f"w{i:06d}.part0": g for i, g in enumerate(goldens, 1)}
+    check(sorted(parts) == sorted(want),
+          f"{label}: committed {sorted(parts)}, expected {sorted(want)}")
+    for name, data in want.items():
+        check(parts[name] == data, f"{label}: {name} differs from its "
+                                   f"golden")
+
+
+def count_windows(driver) -> dict:
+    """Wrap the driver's window runner (its worker thread runs one window
+    DAG at a time, from submit to commit): window id -> (the kernel
+    launches during it, its seconds from submit to commit)."""
+    from tez_tpu_torch.ops import kernels
+    seen: dict = {}
+    run_window = driver._run_window
+
+    def counted(w):
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        run_window(w)
+        seen[w] = ({k: v - before.get(k, 0)
+                    for k, v in kernels.launches.items()},
+                   time.perf_counter() - t0)
+    driver._run_window = counted
+    return seen
+
+
+def require_windows(label: str, device, seen: dict, windows) -> None:
+    """On the card, each window DAG launched both kernels (and not the
+    general merge rank)."""
+    check(sorted(seen) == list(windows),
+          f"{label}: windows run {sorted(seen)}, expected {list(windows)}")
+    if not is_cuda(device):
+        return
+    for w in windows:
+        counts = seen[w][0]
+        check(counts.get("fnv_hash_lanes", 0) > 0
+              and counts.get("merge_path_pair", 0) > 0
+              and counts.get("merge_rank", 0) == 0,
+              f"{label}: window {w} launched {counts}")
+
+
+def stream_leg(corpus, root, device, sz, rng, totals) -> None:
+    """Legs A and B on one stream of 3 windows: attempt 1 ingests
+    windows 1-2 and the start of 3 and crashes while window 2's commit
+    bracket is open (a stream.window.commit delay rule holds it); attempt
+    2 (recover_and_resume) keeps window 1 sealed, replays window 2 and
+    rolls it forward, keeps the open spool's records, takes the rest of
+    window 3 and drains.  Each window DAG's launches are read around it:
+    in the driver's worker thread in attempt 1, around the replay and
+    window 3 in attempt 2."""
+    from tez_tpu_torch.common import faults
+    label = "stream A-B"
+    w = sz["window"]
+    records = window_records(corpus, rng, sz["windows"] * w)
+    goldens = window_parts(records, w)
+    staging = os.path.join(root, "staging_a")
+    out_root = os.path.join(root, "out_a")
+    app_id = "app_1_stream_a"
+    faults.install("phase19-commit", faults.parse_spec(
+        f"stream.window.commit:delay:ms={sz['hold_ms']},n=1,match=@w2"))
+    faults.install("phase19-fences",
+                   faults.parse_spec("fence.stale_window:delay:ms=0"))
+    fences0 = len(faults.plane().journal)
+    try:
+        am1 = stream_am("tez_tpu_torch", app_id, staging, device,
+                        **sz["conf"])
+        with Launches(f"{label} attempt 1", totals):
+            t0 = time.perf_counter()
+            driver1 = am1.open_stream(stream_spec(
+                "tez_tpu_torch", "words", out_root, **{
+                    "tez.runtime.stream.window.count": w}))
+            seen = count_windows(driver1)
+            ended = []
+
+            def ingest() -> None:
+                # windows 1-2 and the start of 3, unless the crash ends it
+                try:
+                    driver1.ingest(records[:2 * w + w // 16])
+                except Exception as e:  # noqa: BLE001 — the crash ends it
+                    ended.append(type(e).__name__)
+            source = threading.Thread(target=ingest, name="phase19-source")
+            source.start()
+            wait_for(lambda: any(
+                ev.event_type.name == "WINDOW_COMMIT_STARTED"
+                and ev.data["window_id"] == 2
+                for ev in list(am1.logging_service.events)),
+                f"{label}: window 2's commit")
+            am1.crash()
+            wall1 = time.perf_counter() - t0
+            source.join(timeout=60)
+            # the crashed driver's commit thread wakes from the rule into
+            # a dead AM: whatever it does lands in no journal
+            driver1._worker.join(timeout=sz["hold_ms"] / 1e3 + 60)
+            sync(device)
+        check(ended in ([], ["StreamError"]) and not source.is_alive(),
+              f"{label}: the source ended {ended} at the crash")
+        journal1 = read_journal(staging, attempt=1)
+        t0 = time.perf_counter()
+        am2 = stream_am("tez_tpu_torch", app_id, staging, device,
+                        attempt=2, **sz["conf"])
+        try:
+            # window 2 replays alone: window 3 is cut only once the rest
+            # of its records arrive
+            with Launches(f"{label} attempt 2 window 2", totals) as ln2:
+                am2.recover_and_resume()
+                check("words" in am2.streams,
+                      f"{label}: attempt 2 resumed no stream")
+                driver2 = am2.streams["words"]
+                kept = driver2.status()["open_records"]
+                wait_for(lambda: finished_windows(am2) >= 1
+                         or driver2.status()["error"],
+                         f"{label}: window 2's replay")
+                check(driver2.status()["error"] is None,
+                      f"{label}: {driver2.status()['error']}")
+                resume_s = time.perf_counter() - t0
+                sync(device)
+            with Launches(f"{label} attempt 2 window 3", totals) as ln3:
+                driver2.ingest(records[2 * w + kept:])
+                final = driver2.drain(timeout=600)
+                sync(device)
+            wall2 = time.perf_counter() - t0
+        finally:
+            am2.stop()
+    finally:
+        faults.clear("phase19-commit")
+        fences = [d for point, d, _m in faults.plane().journal[fences0:]
+                  if point == "fence.stale_window"]
+        faults.clear("phase19-fences")
+    ledger1 = window_ledger(journal1)
+    ledger2 = window_ledger(read_journal(staging, attempt=2))
+    check(ledger1 == [("WINDOW_COMMIT_STARTED", 1, False),
+                      ("WINDOW_COMMIT_FINISHED", 1, False),
+                      ("WINDOW_COMMIT_STARTED", 2, False)],
+          f"{label}: attempt 1's window ledger {ledger1}")
+    check(ledger2 == [("WINDOW_COMMIT_STARTED", 2, False),
+                      ("WINDOW_COMMIT_FINISHED", 2, True),
+                      ("WINDOW_COMMIT_STARTED", 3, False),
+                      ("WINDOW_COMMIT_FINISHED", 3, False)],
+          f"{label}: attempt 2's window ledger {ledger2}")
+    check(final["committed"] == [1, 2, 3] and final["replayed"] == [2]
+          and final["retired"] and not final["aborted"],
+          f"{label}: drain reported {final}")
+    check(kept > 0, f"{label}: the open spool kept no record")
+    check_parts(label, os.path.join(out_root, "words"), goldens)
+    require_windows(label, device, seen, (1, 2))
+    ln2.require(device, "fnv_hash_lanes", "merge_path_pair")
+    ln3.require(device, "fnv_hash_lanes", "merge_path_pair")
+    log(f"phase {label}: {sz['windows']} windows of {w} records; attempt "
+        f"1 wall_s={wall1:.3f} (crash inside window 2's bracket, {kept} "
+        f"records of window 3 in the open spool), its windows submit to "
+        f"commit s and launches "
+        f"{json.dumps({v: [round(t, 3), c] for v, (c, t) in sorted(seen.items())})}; "
+        f"attempt 2 wall_s={wall2:.3f}, window 2 replayed {resume_s:.3f} s "
+        f"after its start (launches {json.dumps(ln2.counts)}), window 3 "
+        f"launches {json.dumps(ln3.counts)}; journal lines replayed "
+        f"{len(journal1)}; zombie rejections (fence.stale_window) "
+        f"{len(fences)}; drain {json.dumps(final)}")
+
+
+def slo_leg(corpus, root, device, sz, rng) -> dict:
+    """Leg A's SLO stream on an AM whose window p95 target is 1 ms: one
+    breach latched under the stream's name; both renderings carry its
+    series."""
+    from tez_tpu_torch.common import metrics
+    from tez_tpu_torch.obs import exposition
+    label = "stream A slo"
+    name = "slo"
+    metrics.registry().reset()
+    n = sz["slo_window"] * sz["slo_windows"]
+    records = window_records(corpus, rng, n)
+    am = stream_am("tez_tpu_torch", "app_1_stream_slo",
+                   os.path.join(root, "staging_slo"), device, **dict(
+                       sz["conf"], **{"tez.am.slo.window.p95-ms": 1.0,
+                                      "tez.am.slo.min-count": 1}))
+    try:
+        driver = am.open_stream(stream_spec(
+            "tez_tpu_torch", name, os.path.join(root, "out_slo"), **{
+                "tez.runtime.stream.window.count": sz["slo_window"]}))
+        driver.ingest(records)
+        final = driver.drain(timeout=600)
+        breaches = [ev.data for ev in list(am.logging_service.events)
+                    if ev.event_type.name == "TENANT_SLO_BREACH"]
+        status = am.slo_watchdog.status()
+    finally:
+        am.stop()
+    check(final["committed"] == list(range(1, sz["slo_windows"] + 1)),
+          f"{label}: drain reported {final}")
+    check_parts(label, os.path.join(root, "out_slo", name),
+                window_parts(records, sz["slo_window"]))
+    mine = [b for b in breaches if b["stream"] == name]
+    check(len(mine) == 1 and mine[0]["kind"] == "window_p95_ms"
+          and status["total_breaches"] == len(breaches),
+          f"{label}: breaches {breaches}, watchdog {status['active']}")
+    reg = metrics.registry()
+    hists, gauges = reg.histograms(), reg.gauges()
+    prom = metrics.render_prometheus(hists, gauges)
+    text = exposition.render_text(hists, gauges)
+    fams = exposition.parse_exposition(text)
+    series = f"tez_latency_stream_{name}_window_latency_ms_count"
+    check(series in prom, f"{label}: render_prometheus has no {series}")
+    check(f'stream="{name}"' in text
+          and "tez_latency_stream_window_latency_ms" in fams,
+          f"{label}: render_text carries no stream={name} series")
+    log(f"phase {label}: {sz['slo_windows']} windows of "
+        f"{sz['slo_window']} records; breaches "
+        f"{json.dumps([{k: b[k] for k in ('kind', 'stream', 'observed')} for b in breaches])}; "
+        f"render_prometheus {len(prom.splitlines())} lines, render_text "
+        f"{len(text.splitlines())} lines ({len(fams)} families)")
+    return status
+
+
+#: what each held attempt's sorter had done when its kill reached it
+#: (HeldTokenProcessor appends, speculation_leg reads)
+HELD_ATTEMPTS: list = []
+
+
+class HeldTokenProcessor:
+    """Phase 19 C's tokenizer: OrderedWordCount's vector tokenizer, except
+    in the attempt its payload's "held" ends (tokenizer 0's first).  That
+    attempt writes its split, waits until its sorter dispatched a span on
+    the device, then reports no progress for up to "hold_ms": a straggler
+    with its span plane open (its pipeline up, its stream pair held, its
+    runs kept for a flush that never comes).  When its kill arrives, what
+    its sorter had done goes into HELD_ATTEMPTS and the kill goes on to
+    the task runner, which aborts the output."""
+
+    def __init__(self, context):
+        from tez_tpu_torch.examples.ordered_wordcount import \
+            VectorTokenProcessor
+        self.context = context
+        self._inner = VectorTokenProcessor(context)
+
+    def initialize(self) -> None:
+        self._inner.initialize()
+
+    def handle_events(self, events) -> None:
+        self._inner.handle_events(events)
+
+    def close(self) -> None:
+        self._inner.close()
+
+    def run(self, inputs, outputs) -> None:
+        from tez_tpu_torch.runtime.contexts import TaskKilledError
+        payload = self.context.user_payload.load() or {}
+        attempt = str(self.context.task_attempt_id)
+        if not attempt.endswith(payload["held"]):
+            self._inner.run(inputs, outputs)
+            return
+        sorter = outputs["summation"].sorter
+        deadline = time.monotonic() + payload["hold_ms"] / 1e3
+
+        def stats() -> dict:
+            pipe = sorter._pipeline
+            return {"submitted": pipe.stats.submitted if pipe else 0,
+                    "dispatched": pipe.stats.dispatched if pipe else 0,
+                    "completed": pipe.stats.completed if pipe else 0,
+                    "spans": sorter.num_spills,
+                    "buffered": sorter._span.num_records}
+        self._inner.run(inputs, outputs)
+        held = None
+        try:
+            while time.monotonic() < deadline:
+                if held is None and stats()["dispatched"] > 0:
+                    held = stats()
+                time.sleep(0.005)
+                self.context.notify_progress()
+        except TaskKilledError:
+            HELD_ATTEMPTS.append(dict(stats(), attempt=attempt,
+                                      at_hold=held))
+            raise
+
+
+def abort_leg(device, sz, totals) -> None:
+    """Phase 19 C's abort with a span in flight: an async DeviceSorter
+    shipping each span as it completes (on_spill, the pipelined output's
+    hook) writes 3 spans of abort_span_mb; a device.dispatch.delay rule
+    holds span 1's completion abort_hold_ms, and abort() runs inside the
+    hold.  It returns only once that span completed, nothing ships after
+    it began, the sorter keeps no run, the stream pair goes back and the
+    breaker stays closed."""
+    from tez_tpu_torch.common import faults
+    from tez_tpu_torch.common.counters import TezCounters
+    from tez_tpu_torch.ops import device as device_ops
+    from tez_tpu_torch.ops.async_stage import process_breaker
+    from tez_tpu_torch.ops.sorter import DeviceSorter
+    label = "speculation C abort"
+    span_bytes = int(sz["abort_span_mb"] * (1 << 20))
+    rec = span_records(span_bytes)
+    rng = np.random.default_rng(19)
+    vocab = bench_vocab()
+    batches = [bench_batch(rng, vocab, rec)[0] for _span in range(3)]
+    hold_s = sz["abort_hold_ms"] / 1e3
+    shipped = []
+    held0 = device_ops.held_stream_pairs()
+    counters = TezCounters()
+    faults.install("phase19-abort", faults.parse_spec(
+        f"device.dispatch.delay:delay:ms={sz['abort_hold_ms']},n=1,"
+        f"match=span=1"))
+    fired0 = len(faults.plane().journal)
+
+    def fired() -> bool:
+        return any(point == "device.dispatch.delay" for point, _d, _m in
+                   faults.plane().journal[fired0:])
+    try:
+        with Launches(label, totals) as ln:
+            s = DeviceSorter(num_partitions=NUM_PARTITIONS, key_width=12,
+                             span_budget_bytes=span_bytes, engine="device",
+                             device=device, pipeline_depth=2,
+                             counters=counters)
+            s.on_spill = lambda run, sid: shipped.append(
+                (sid, time.perf_counter()))
+            for batch in batches:
+                s.write_batch(batch)
+            wait_for(fired, f"{label}: span 1's held completion",
+                     timeout=120)
+            t_fire = time.perf_counter()
+            pipe = s._pipeline
+            in_flight = pipe.stats.submitted - pipe.stats.completed
+            held = device_ops.held_stream_pairs()
+            t_abort = time.perf_counter()
+            s.abort()
+            t_end = time.perf_counter()
+            sync(device)
+    finally:
+        faults.clear("phase19-abort")
+    br = process_breaker()
+    sids = [sid for sid, _t in shipped]
+    late = [sid for sid, t in shipped if t >= t_abort]
+    check(s.num_spills == 3 and in_flight >= 1 and 1 not in sids
+          and not late,
+          f"{label}: {s.num_spills} spans, {in_flight} in flight at the "
+          f"abort, shipped {sids} ({late} after the abort began)")
+    check(t_end - t_fire >= 0.9 * hold_s,
+          f"{label}: abort() returned {t_end - t_fire:.3f} s after the "
+          f"hold began, inside the {hold_s:.1f} s hold")
+    check(not is_cuda(device) or held == held0 + 1,
+          f"{label}: {held} stream pairs held in the hold ({held0} before)")
+    check(device_ops.held_stream_pairs() == held0 and not s._runs
+          and s._pipeline is None and br.state == "closed"
+          and br.trips == 0,
+          f"{label}: after the abort {device_ops.held_stream_pairs()} "
+          f"stream pairs held ({held0} before), {len(s._runs)} runs kept, "
+          f"breaker {br.state} {br.trips} trips")
+    check_fault_free(label, [pipe], [counters])
+    ln.require(device, "fnv_hash_lanes")
+    log(f"phase {label}: 3 spans of {rec} records, {in_flight} in flight "
+        f"when abort() began; it returned {t_end - t_abort:.3f} s later "
+        f"(span 1's completion held {hold_s:.1f} s), spans shipped before "
+        f"it {sorted(sids)}, none after; stream pairs held {held} in the "
+        f"hold, {held0} after; launches {json.dumps(ln.counts)}")
+
+
+def speculation_leg(corpus, root, device, sz, totals) -> None:
+    """Leg C: OrderedWordCount with speculation, the dag-aware scheduler,
+    the sharded dispatcher, the lock-order witness and an SLO target;
+    tokenizer 0's first attempt holds once its sorter dispatched a span
+    (HeldTokenProcessor), a sibling overtakes it, and the loser's kill
+    aborts its output: it gave its span plane back and registered nothing
+    (nor published into a store, where one is on).  Then abort_leg."""
+    from tez_tpu_torch.client.tez_client import TezClient
+    from tez_tpu_torch.common import lockorder
+    from tez_tpu_torch.common.dispatcher import ShardedDispatcher
+    from tez_tpu_torch.common.payload import ProcessorDescriptor
+    from tez_tpu_torch.examples import ordered_wordcount
+    from tez_tpu_torch.ops import device as device_ops
+    from tez_tpu_torch.ops.async_stage import process_breaker
+    from tez_tpu_torch.shuffle.service import local_shuffle_service
+    from tez_tpu_torch.store import local_buffer_store, reset_store
+    label = "speculation C"
+    # the runners resolve the processor by name: this module where it is
+    # imported, its second copy where it runs as the script
+    held_log = importlib.import_module("chip_smoke").HELD_ATTEMPTS
+    held_log.clear()
+    path, nbytes, golden = corpus.slice_file("spec.txt", 0, sz["spec_mb"])
+    out = os.path.join(root, "out_c")
+    delay_s = sz["spec_delay_ms"] / 1e3
+    conf = dict(DAG_CONF, **SPEC_CONF, **sz["conf"], **{
+        "tez.runtime.io.sort.mb": sz["spec_sort_mb"],
+        "tez.staging-dir": os.path.join(root, "staging_c")})
+    dag = ordered_wordcount.build_dag([path], out, **dict(
+        DAG_SHAPE, combine=False))
+    dag.vertices["tokenizer"].processor = ProcessorDescriptor.create(
+        "chip_smoke:HeldTokenProcessor", payload={
+            "held": "_00_000000_0", "hold_ms": sz["spec_delay_ms"]})
+
+    def published() -> int:
+        store = local_buffer_store()
+        return -1 if store is None else \
+            store.stats()["counters"].get("store.published", 0)
+    reset_store()
+    lockorder.clear_all()
+    # pipelines of earlier paths that ended in an error keep their pair
+    held0 = device_ops.held_stream_pairs()
+    client = TezClient.create("speculation", conf, device=device)
+    client.start()
+    try:
+        am = client.framework_client.am
+        check(isinstance(am.dispatcher, ShardedDispatcher)
+              and type(am.task_scheduler).__name__ ==
+              "DagAwareTaskSchedulerService",
+              f"{label}: dispatcher {type(am.dispatcher).__name__}, "
+              f"scheduler {type(am.task_scheduler).__name__}")
+        with Launches(label, totals) as ln:
+            t0 = time.perf_counter()
+            status = client.submit_dag(dag).wait_for_completion(
+                timeout=3600)
+            wall = time.perf_counter() - t0
+            sync(device)
+        published_at_end = published()
+        events = list(am.logging_service.events)
+        loser = next(ev.attempt_id for ev in events
+                     if ev.event_type.name == "TASK_ATTEMPT_STARTED"
+                     and ev.attempt_id.endswith("_00_000000_0"))
+        attempts = {ev.attempt_id: ev.data.get("state", "") for ev in events
+                    if ev.event_type.name == "TASK_ATTEMPT_FINISHED"
+                    and "_00_000000_" in ev.attempt_id}
+        counters = status.counters.to_dict() if status.counters else {}
+        dag_counters = am.dag_counters.to_dict().get("DAGCounter", {})
+        slo = am.slo_watchdog.status()
+        violations = lockorder.check()
+        witnessed = (len(lockorder.witness().lock_names()),
+                     len(lockorder.witness().edges()))
+        depths = am.dispatcher.peak_depths()
+        log(f"phase {label}: wall_s={wall:.3f} MB={nbytes / 1e6:.1f} "
+            f"against a {delay_s:.0f} s hold; tokenizer 0's attempts "
+            f"{json.dumps(attempts)}; DAG counters "
+            f"{json.dumps(dag_counters)}; witness {witnessed[0]} locks, "
+            f"{witnessed[1]} edges; dispatcher shard peak depths {depths}; "
+            f"SLO evaluations {slo['evaluations']}, breaches "
+            f"{slo['total_breaches']}")
+        check(status.state.name == "SUCCEEDED",
+              f"{label}: state {status.state.name}")
+        check(wall < 0.75 * delay_s, f"{label}: the DAG took {wall:.3f} s "
+                                     f"against the {delay_s:.0f} s hold")
+        check(dag_counters.get("NUM_SPECULATIONS", 0) >= 1,
+              f"{label}: DAG counters {dag_counters}")
+        check(any(a.endswith("_1") and s == "SUCCEEDED"
+                  for a, s in attempts.items()),
+              f"{label}: tokenizer 0's attempts {attempts}")
+        check_wordcount(label, out, corpus.mat, corpus.lens, golden)
+        check_no_failover(label, counters)
+        ln.require(device, "fnv_hash_lanes", "merge_path_pair")
+        check(not violations, f"{label}: lock-order witness {violations}")
+        check(witnessed[0] > 0, f"{label}: the witness saw no lock")
+        check(slo["total_breaches"] == 0 and not slo["burn"]["active"],
+              f"{label}: SLO {slo['active']} {slo['burn']['active']}")
+        # the kill reaches the loser in its hold: wait for its runner's
+        # reporter thread to end (after the abort)
+        t0 = time.perf_counter()
+        wait_for(lambda: not any(t.name == f"reporter-{loser}"
+                                 for t in threading.enumerate()),
+                 f"{label}: the loser's teardown", timeout=delay_s + 120)
+        sync(device)
+        waited = time.perf_counter() - t0
+        final = {ev.attempt_id: ev.data.get("state", "")
+                 for ev in list(am.logging_service.events)
+                 if ev.event_type.name == "TASK_ATTEMPT_FINISHED"
+                 and ev.attempt_id == loser}
+        registered = [key for key in list(local_shuffle_service()._runs)
+                      if loser in key[0]]
+        published_after = published()
+    finally:
+        client.stop()
+        lockorder.clear_all()
+        reset_store()
+    held = device_ops.held_stream_pairs()
+    br = process_breaker()
+    check(len(held_log) == 1 and held_log[0]["attempt"] == str(loser),
+          f"{label}: the held attempts' kills {held_log}")
+    at_kill = held_log[0]
+    # on the card each span the loser's sorter dispatched launched
+    # fnv_hash_lanes once
+    check(at_kill["at_hold"] is not None and at_kill["dispatched"] >= 1,
+          f"{label}: the loser's sorter at its kill {at_kill}")
+    check(final.get(loser) == "KILLED" and not registered
+          and published_after == published_at_end,
+          f"{label}: the loser ended {final}, registered {registered}, "
+          f"store.published {published_at_end} -> {published_after}")
+    check(held == held0 and br.state == "closed" and br.trips == 0,
+          f"{label}: {held} stream pairs held ({held0} before the DAG), "
+          f"breaker {br.state} {br.trips} trips after the loser's teardown")
+    log(f"phase {label}: the loser {loser} KILLED after its sorter "
+        f"dispatched {at_kill['dispatched']} span(s) on {device} (at the "
+        f"kill: {json.dumps({k: v for k, v in at_kill.items() if k != 'attempt'})}); "
+        f"its teardown ended {waited:.3f} s after the DAG; stream pairs "
+        f"held {held} as before the DAG, the breaker closed, nothing "
+        f"registered"
+        + ("" if published_after < 0 else
+           f", store.published {published_after} before and after"))
+    abort_leg(device, sz, totals)
+
+
+def stream_phase(args, corpus: DagCorpus, device="cuda", **sizes) -> dict:
+    """Phase 19 (module docstring) over phase 11's vocabulary and corpus:
+    C (the speculative DAG, its loser's abort, the abort with a span in
+    flight), then A and B, then A's SLO stream.  Returns {"launches":
+    ..., "legs": {leg: wall s}}."""
+    from tez_tpu_torch.ops import async_stage
+    sz = dict(STREAM_SIZES, **sizes)
+    totals: collections.Counter = collections.Counter()
+    rng = np.random.default_rng(args.seed + 19)
+    root = os.path.join(corpus.root, "stream")
+    os.makedirs(root, exist_ok=True)
+    async_stage.reset_process_breaker()
+    legs = {}
+
+    def timed(leg, run) -> None:
+        before = collections.Counter(totals)
+        t0 = time.perf_counter()
+        run()
+        legs[leg] = time.perf_counter() - t0
+        log(f"stream {leg}: leg wall_s={legs[leg]:.3f} launches "
+            f"{json.dumps(dict(totals - before))}")
+
+    timed("C", lambda: speculation_leg(corpus, root, device, sz, totals))
+    timed("A-B", lambda: stream_leg(corpus, root, device, sz, rng, totals))
+    timed("A slo", lambda: slo_leg(corpus, root, device, sz, rng))
+    log("stream: legs A-C passed")
+    return {"launches": dict(totals), "legs": legs}
+
+
 class SettableClock:
     """A clock that stands still until advanced: the breaker's cooldown
     in phase 7 elapses when the script says so, not by wall time."""
@@ -5017,7 +5715,7 @@ def report_profile(prof, wall_s: float) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--producers", type=int, default=4)
+    ap.add_argument("--producers", type=int, default=2)
     ap.add_argument("--span-mb", type=float, default=256)
     ap.add_argument("--profile", action="store_true",
                     help="trace phases 3-6 with torch.profiler and print "
@@ -5155,13 +5853,20 @@ def main(argv=None) -> int:
             f"{json.dumps(query['launches'])}, legs s "
             f"{json.dumps({k: round(v, 3) for k, v in query['legs'].items()})}"
             f", host library {phase_native('query')}")
+        t0 = time.perf_counter()
+        log(f"stream phase on {card}")
+        stream = stream_phase(args, corpus)
+        log(f"stream: {time.perf_counter() - t0:.3f} s, launches "
+            f"{json.dumps(stream['launches'])}, legs s "
+            f"{json.dumps({k: round(v, 3) for k, v in stream['legs'].items()})}"
+            f", host library {phase_native('stream')}")
     launches = collections.Counter(launches)
     launches.update(spill_launches)
     launches.update(merge_launches)
     launches.update(task_launches)
     launches.update(dag_launches)
     launches.update(remote_launches)
-    for later in (unordered, mrr, mesh, query):
+    for later in (unordered, mrr, mesh, query, stream):
         launches.update(later["launches"])
     launches.update(store_launches)
     launches.update(standalone_launches)
@@ -5174,8 +5879,9 @@ def main(argv=None) -> int:
                 f"path, the merge legs, the tasks, the DAG, its runner "
                 f"processes, the unordered edge, MRR, the mesh DAGs, "
                 f"the store and push DAGs, the standalone AM's pods and "
-                f"recovered AM, and the query phase's joins, corpus "
-                f"queries and custom edges")
+                f"recovered AM, the query phase's joins, corpus "
+                f"queries and custom edges, and the streams and the "
+                f"speculative DAG")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
@@ -5183,8 +5889,8 @@ def main(argv=None) -> int:
         f"on the slice, the spill path, the merge legs, the tasks, the DAG, "
         f"its runner processes, the unordered edge, MRR, the mesh DAGs, "
         f"the store and push DAGs, the standalone AM's pods and "
-        f"recovered AM, and the query phase's joins, corpus queries and "
-        f"custom edges")
+        f"recovered AM, the query phase's joins, corpus queries and "
+        f"custom edges, and the streams and the speculative DAG")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

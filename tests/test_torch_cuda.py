@@ -1658,3 +1658,85 @@ def test_floor_queries_on_the_card_match_host(cuda, tmp_path):
         assert launches["fnv_hash_lanes"] > 0, name
         assert launches["merge_path_pair"] > 0, name
         assert launches["merge_rank"] == 0, name
+
+
+def test_stream_windows_on_the_card_match_host(cuda, tmp_path):
+    """Phase 19 A's stream at a small size with the sorter's device floor
+    at one record (chip_smoke.FLOOR_CONF): each window DAG on the card
+    writes the host run's part file byte for byte and launches
+    fnv_hash_lanes and merge_path_pair (and not the general merge
+    rank)."""
+    import chip_smoke
+    from tez_tpu_torch.ops.async_stage import reset_process_breaker
+    reset_process_breaker()
+    rng = np.random.default_rng(19)
+    words = [f"w{i}" for i in rng.zipf(1.3, 3 * 4096) % 5000]
+    records = [{"k": w, "v": 1} for w in words]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        am = chip_smoke.stream_am(
+            "tez_tpu_torch", f"app_1_cs_{dev}", str(tmp_path / dev / "st"),
+            dev, **chip_smoke.FLOOR_CONF)
+        launches = []
+        try:
+            driver = am.open_stream(chip_smoke.stream_spec(
+                "tez_tpu_torch", "s", str(tmp_path / dev / "out"), **{
+                    "tez.runtime.stream.window.count": 4096}))
+            for w in range(3):
+                kernels.reset_launches()
+                driver.ingest(records[w * 4096:(w + 1) * 4096])
+                chip_smoke.wait_for(
+                    lambda: chip_smoke.finished_windows(am) > w,
+                    f"window {w + 1}", timeout=300)
+                launches.append(dict(kernels.launches))
+            final = driver.drain(timeout=300)
+        finally:
+            am.stop()
+        assert final["committed"] == [1, 2, 3]
+        got[dev] = (chip_smoke.stream_parts(str(tmp_path / dev / "out" /
+                                                "s")), launches)
+    assert got["cuda"][0] == got["cpu"][0] == {
+        f"w{i:06d}.part0": g for i, g in
+        enumerate(chip_smoke.window_parts(records, 4096), 1)}
+    for launches in got["cuda"][1]:
+        assert launches["fnv_hash_lanes"] > 0
+        assert launches["merge_path_pair"] > 0
+        assert launches["merge_rank"] == 0
+
+
+def test_speculative_dag_on_the_card(cuda, tmp_path):
+    """Phase 19 C at a small size on the card with the sorter's device
+    floor at one record: the sibling of a tokenizer attempt held after
+    its sorter dispatched a span on the card wins, the DAG's counts are
+    the golden's, both kernels launch, the witness finds no inversion,
+    and the loser, killed with its span plane open, holds no stream pair
+    more than before the DAG and registers nothing; then the abort with
+    a span in flight (every check of chip_smoke.speculation_leg and
+    abort_leg)."""
+    import collections
+    import types
+    import chip_smoke
+    # built before the DAG, as the script builds them: a build inside
+    # the tokenizers would set the speculator's runtime estimates
+    kernels.load()
+    args = types.SimpleNamespace(seed=0)
+    corpus = chip_smoke.DagCorpus(str(tmp_path), args, corpus_mb=2,
+                                  vocab_size=20_000, marks_mb=(2,))
+    sz = dict(chip_smoke.TINY_STREAM, spec_mb=2, conf=chip_smoke.FLOOR_CONF)
+    totals = collections.Counter()
+    chip_smoke.speculation_leg(corpus, str(tmp_path), "cuda", sz, totals)
+    assert totals["fnv_hash_lanes"] > 0 and totals["merge_path_pair"] > 0
+    held = chip_smoke.HELD_ATTEMPTS
+    assert len(held) == 1 and held[0]["dispatched"] >= 1
+
+
+def test_sorter_abort_with_a_span_in_flight_on_the_card(cuda):
+    """chip_smoke.abort_leg on the card: an async sorter's span 1 is held
+    in its completion while the sorter aborts; abort() waits for it,
+    nothing ships after it began, the stream pair goes back, no run is
+    left, and the three spans launched fnv_hash_lanes."""
+    import collections
+    import chip_smoke
+    totals = collections.Counter()
+    chip_smoke.abort_leg("cuda", chip_smoke.TINY_STREAM, totals)
+    assert totals["fnv_hash_lanes"] >= 3

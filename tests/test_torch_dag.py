@@ -391,32 +391,6 @@ def _start(conf):
         client.stop()
 
 
-def _submit(dag_conf):
-    """A one-vertex DAG with `dag_conf` submitted to a local AM."""
-    def go(tmp_path):
-        from tez_tpu_torch.client.tez_client import TezClient
-        desc = {"name": "d", "vertices": [_v("a")], "edges": [],
-                "conf": dag_conf}
-        dag = chip_smoke.build_dag(api_of(ROOTS[0]), desc)
-        with TezClient.create("x", {"tez.staging-dir": str(tmp_path)},
-                              device="cpu") as client:
-            client.submit_dag(dag)
-    return go
-
-
-def _am(call):
-    def go(tmp_path):
-        from tez_tpu_torch.am.app_master import DAGAppMaster
-        from tez_tpu_torch.common.config import TezConfiguration
-        am = DAGAppMaster("app_1_0001", TezConfiguration(
-            {"tez.staging-dir": str(tmp_path)}), device="cpu")
-        try:
-            call(am)
-        finally:
-            am.stop()
-    return go
-
-
 def _conf_start(extra):
     return lambda tmp_path: _start(dict(
         extra, **{"tez.staging-dir": str(tmp_path)}))
@@ -425,13 +399,6 @@ def _conf_start(extra):
 #: each feature the port defers, and how a user would reach it
 DEFERRED = {
     "web_ui": _conf_start({"tez.am.web.enabled": True}),
-    "sharded_dispatcher": _conf_start(
-        {"tez.am.concurrent.dispatcher.shards": 4}),
-    "slo_target": _conf_start({"tez.am.slo.submit.p95-ms": 100.0}),
-    "speculation": _submit({"tez.am.speculation.enabled": True}),
-    "streaming": _submit({"tez.runtime.stream.id": "s"}),
-    "lock_order_witness": _submit({"tez.debug.lockorder": True}),
-    "open_stream": _am(lambda am: am.open_stream(None)),
 }
 
 

@@ -902,3 +902,61 @@ def test_runner_pool_shutdown_never_joins_an_unstarted_runner(monkeypatch):
         errors[root] = out
     assert errors[ROOTS[0]] == []
     assert errors[ROOTS[1]] == ["cannot join thread before it is started"]
+
+
+# -- a held zombie wakes to its kill ------------------------------------------
+def _mark_processor(root):
+    """A processor that leaves a file named after its attempt in
+    payload["dir"] as soon as it runs."""
+    name = f"MarkRun{'Port' if root == ROOTS[0] else 'Ref'}"
+    cls = globals().get(name)
+    if cls is None:
+        base = mod(root, "library.processors").SimpleProcessor
+
+        def run(self, inputs, outputs):
+            d = (self.context.user_payload.load() or {})["dir"]
+            with open(os.path.join(d, str(self.context.task_attempt_id)),
+                      "w"):
+                pass
+        cls = type(name, (base,), {"run": run, "__module__": __name__})
+        globals()[name] = cls
+    return cls
+
+
+def test_held_zombie_never_starts_its_processor(tmp_path):
+    """A crashed AM's runner thread held by a task.run delay rule, fenced
+    on its heartbeats by attempt 2's epoch while it sleeps: the port's
+    wakes to its kill and never starts its processor; tez_tpu's runs it
+    (ROADMAP Queue 3).  Held zombies of a test's crashed AM that woke
+    later merged and registered in whatever test the worker ran next."""
+    marks = {}
+    for root in ROOTS:
+        tmp = tmp_path / root
+        (tmp / "marks").mkdir(parents=True)
+        faults = mod(root, "common.faults")
+        app = "app_1_zhold"
+        am = new_am(root, app, {"tez.staging-dir": str(tmp),
+                                "tez.am.local.num-containers": 1}, 1)
+        am.start()
+        faults.install("hold", faults.parse_spec(
+            "task.run:delay:ms=1500,n=1"))
+        try:
+            d, p = mod(root, "dag.dag"), mod(root, "common.payload")
+            v = d.Vertex.create("v", p.ProcessorDescriptor.create(
+                _mark_processor(root), payload={"dir": str(tmp / "marks")}),
+                1)
+            am.submit_dag(d.DAG.create("held").add_vertex(v)
+                          .create_dag_plan())
+            chip_smoke.wait_for(lambda: any(
+                e.event_type.name == "TASK_ATTEMPT_STARTED"
+                for e in list(am.logging_service.events)),
+                "the attempt's start", timeout=30)
+            # the successor comes up while the attempt is held
+            mod(root, "common.epoch").register(app, 2)
+            am.crash()
+        finally:
+            faults.clear("hold")
+        # crash() joined the runner thread, which woke from the hold
+        marks[root] = sorted(os.listdir(tmp / "marks"))
+    assert marks[ROOTS[0]] == []
+    assert len(marks[ROOTS[1]]) == 1

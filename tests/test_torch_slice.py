@@ -137,7 +137,11 @@ def test_import_guard_no_jax_no_tez_tpu():
                      "tools.query_corpus", "examples.sort_merge_join",
                      "examples.hash_join", "examples.cartesian_product",
                      "examples.driver", "library.cartesian_product",
-                     "library.fair_shuffle"):
+                     "library.fair_shuffle", "am.streaming",
+                     "library.streaming", "am.speculation",
+                     "am.estimators", "obs.slo", "obs.exposition",
+                     "common.lockorder", "common.dispatcher",
+                     "am.task_scheduler", "common.metrics"):
             assert "tez_tpu_torch." + name in names, name
         # a DAG through the port resolves every descriptor string it
         # carries (a string naming tez_tpu would load it here)

@@ -31,7 +31,7 @@ docs/multitenancy.md for the full model.
 The port's copy of tez_tpu.am.admission: the verdicts, the FIFO consumer,
 the tenant caps, the store-pressure gate and the crash path (parked
 submitters abandoned with AMCrashedError, ``requeue`` replaying them on a
-successor AM).  The port has no SLO watchdog.
+successor AM) and the SLO watchdog's ticks.
 """
 from __future__ import annotations
 
@@ -146,6 +146,7 @@ class AdmissionController:
             self._publish_gauges_locked()
         if shed_reason is not None:
             self._journal_shed(plan, tenant, shed_reason, depth, inflight)
+            self._slo_tick()
             # snapshot AFTER the slo tick so a shed-forced breach lands in
             # the dump the acceptance assertions read
             _flight.auto_dump("am.admit.shed", scope=tenant)
@@ -282,6 +283,7 @@ class AdmissionController:
                 self._publish_gauges_locked()
             metrics.observe("am.admit.queue_wait",
                             (clock.mono_s() - sub.enqueued_at) * 1000.0)
+            self._slo_tick()
             sub.done.set()
 
     # -- crash recovery -------------------------------------------------------
@@ -362,6 +364,20 @@ class AdmissionController:
         # counter_diff tenant section straight from the registry
         metrics.observe(f"tenant.{tenant or 'default'}.dag.latency",
                         latency_ms)
+        self._slo_tick()
+
+    def _slo_tick(self) -> None:
+        """Run one SLO watchdog sweep off the AM's own completion/shed
+        ticks (pull-based: no timer thread, no new lock ordering)."""
+        wd = getattr(self._am, "slo_watchdog", None)
+        if wd is None:
+            return
+        with self._lock:
+            stats = {t: ts.to_dict() for t, ts in self._tenants.items()}
+        try:
+            wd.evaluate(stats)
+        except Exception:  # noqa: BLE001 — diagnostics never fail admission
+            log.exception("SLO watchdog sweep failed")
 
     def stop(self) -> None:
         with self._lock:

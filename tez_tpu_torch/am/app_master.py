@@ -16,10 +16,12 @@ recovery is tez_tpu's: ``crash()`` dies without the graceful niceties, a
 successor ``DAGAppMaster(attempt=n + 1)`` replays the journal in
 ``recover_and_resume`` (tasks the journal holds SUCCEEDED are restored,
 not re-run; parked submissions are requeued), within the
-tez.am.max.app.attempts budget.  What is not ported yet raises
-NotImplementedError when its conf asks for it: the web UI, the sharded
-dispatcher, speculation, streaming, declared SLO targets and the
-lock-order witness.
+tez.am.max.app.attempts budget.  The AM's optional services are tez_tpu's:
+the sharded dispatcher, speculation, the SLO watchdog, the lock-order
+witness and streaming mode (``open_stream``: resident windowed DAGs, each
+window a DAG on the AM's device, resumed from the window ledger after a
+crash).  The web UI is not ported yet: a conf that enables it is refused
+with NotImplementedError.
 """
 from __future__ import annotations
 
@@ -51,19 +53,11 @@ from tez_tpu_torch.ops.device import resolve_device
 log = logging.getLogger(__name__)
 
 
-#: conf keys of AM features the port lacks, each with the value that
-#: leaves the feature off; a conf asking for another value is refused
+#: conf keys of AM features the port lacks (the web UI) or modes it does
+#: not know, each with the values it accepts; another value is refused
 _UNPORTED_KEYS = (
     (C.RUNNER_MODE, ("threads", "subprocess", "pods", "", None)),
     (C.AM_WEB_ENABLED, (False, None)),
-    (C.AM_CONCURRENT_DISPATCHER_SHARDS, (0, 1, None)),
-    (C.SPECULATION_ENABLED, (False, None)),
-    (C.DEBUG_LOCKORDER, (False, None)),
-    (C.STREAM_ID, ("", None)),
-    (C.AM_SLO_SUBMIT_P95_MS, (0, 0.0, None)),
-    (C.AM_SLO_QUEUE_WAIT_P95_MS, (0, 0.0, None)),
-    (C.AM_SLO_SHED_RATE, (0, 0.0, None)),
-    (C.AM_SLO_WINDOW_P95_MS, (0, 0.0, None)),
 )
 
 
@@ -102,7 +96,13 @@ class DAGAppMaster:
         self.work_dir = os.path.join(
             conf.get(C.STAGING_DIR), app_id, "work")
         os.makedirs(self.work_dir, exist_ok=True)
-        self.dispatcher = Dispatcher(f"am-{app_id}")
+        shards = int(conf.get(C.AM_CONCURRENT_DISPATCHER_SHARDS) or 0)
+        if shards > 1:
+            from tez_tpu_torch.common.dispatcher import ShardedDispatcher
+            self.dispatcher = ShardedDispatcher(f"am-{app_id}",
+                                                num_shards=shards)
+        else:
+            self.dispatcher = Dispatcher(f"am-{app_id}")
         self.dag_counters = TezCounters()
         from tez_tpu_torch.common.counters import Limits
         Limits.configure(conf)
@@ -171,11 +171,19 @@ class DAGAppMaster:
         self.dag_ids_by_name: Dict[str, str] = {}
         self._dag_seq = 0
         self._dag_done = threading.Condition()
+        from tez_tpu_torch.obs import slo as _slo
+        #: None unless some tez.am.slo.* target is declared; the admission
+        #: controller ticks it on every completion/shed/queue-promotion
+        self.slo_watchdog = _slo.from_conf(conf, journal=self.history)
         from tez_tpu_torch.am.admission import AdmissionController
         self.admission = AdmissionController(self)
         from tez_tpu_torch.am.telemetry import TelemetrySampler
-        #: the live telemetry plane: the periodic ring sampler
+        #: the live telemetry plane: periodic ring sampler + burn-rate SLO
+        #: evaluation
         self.telemetry = TelemetrySampler(self)
+        #: resident stream drivers keyed by stream name (streaming mode);
+        #: populated by open_stream and by recovery
+        self.streams: Dict[str, Any] = {}
         self._register_handlers()
         self._started = False
 
@@ -252,7 +260,13 @@ class DAGAppMaster:
         self.telemetry.stop()
         self.thread_dumper.stop()
         self.heartbeat_monitor.stop()
+        for driver in list(self.streams.values()):
+            driver.crash()   # un-drained streams resume on the successor
         self.admission.stop()
+        for dag in list(self.live_dags.values()):
+            speculator = getattr(dag, "speculator", None)
+            if speculator is not None:
+                speculator.stop()
         self.task_scheduler.shutdown()
         self.runner_pool.shutdown()
         if self.umbilical_server is not None:
@@ -284,7 +298,13 @@ class DAGAppMaster:
         # abandon — not resolve — the admission queue: parked submitters
         # get AMCrashedError and must re-attach; their DAG_QUEUED records
         # stay unresolved in the journal, which is the replay contract
+        for driver in list(self.streams.values()):
+            driver.crash()   # window loop dies mid-bracket; ledger decides
         self.admission.crash()
+        for dag in list(self.live_dags.values()):
+            speculator = getattr(dag, "speculator", None)
+            if speculator is not None:   # thread hygiene, not graceful state
+                speculator.stop()
         self.task_scheduler.shutdown()
         self.runner_pool.shutdown()
         if self.umbilical_server is not None:
@@ -457,8 +477,13 @@ class DAGAppMaster:
         m = mesh_coordinator().cleanup_dag(str(dag.dag_id))
         if m:
             log.info("dag %s: released %d mesh exchange edges", dag.dag_id, m)
+        speculator = getattr(dag, "speculator", None)
+        if speculator is not None:
+            speculator.stop()
         from tez_tpu_torch.common import faults
         faults.clear(str(dag.dag_id))
+        from tez_tpu_torch.common import lockorder
+        lockorder.disarm(str(dag.dag_id))
         from tez_tpu_torch.common import tracing
         sp = getattr(dag, "trace_span", None)
         if sp is not None:
@@ -543,6 +568,10 @@ class DAGAppMaster:
                 log.info("debug artifact: %s", path)
             except Exception:  # noqa: BLE001 — diagnostics must not fail
                 log.exception("debug artifact write failed")
+        if dag.conf.get(C.SPECULATION_ENABLED):
+            from tez_tpu_torch.am.speculation import Speculator
+            dag.speculator = Speculator(dag)
+            dag.speculator.start()
         # tiered buffer store: created on the first DAG that enables it and
         # shared by the whole session; lineage hashes let recurring DAGs
         # reuse sealed outputs (computed per-submit — they depend only on
@@ -556,6 +585,10 @@ class DAGAppMaster:
         # with it in on_dag_finished — per-DAG scoping
         from tez_tpu_torch.common import faults
         faults.install_from_conf(dag.conf, scope=str(dag_id))
+        # lock-order witness (tez.debug.lockorder): armed per-DAG like the
+        # fault plane; disarmed in on_dag_finished, observations retained
+        from tez_tpu_torch.common import lockorder
+        lockorder.install_from_conf(dag.conf, scope=str(dag_id))
         # tracing plane: armed with the DAG like faults; the DAG root span
         # stays open until on_dag_finished and every TaskSpec carries its
         # context so attempt/fetch spans land on the same trace id
@@ -576,9 +609,43 @@ class DAGAppMaster:
         self.dispatch(DAGEvent(DAGEventType.DAG_START, dag_id))
         return dag_id
 
+    # -- streaming mode (docs/streaming.md) ----------------------------------
     def open_stream(self, spec: Any) -> Any:
-        """Streaming mode (tez_tpu's resident windowed DAGs)."""
-        raise NotImplementedError("streaming mode is not ported yet")
+        """Open a resident windowed stream: journal the rebuildable spec
+        (STREAM_OPENED, fsync'd — the successor incarnation's resume
+        contract), start the driver, hand the ingest surface back."""
+        assert self._started, "AM not started"
+        from tez_tpu_torch.am.streaming import StreamDriver
+        if spec.name in self.streams:
+            raise ValueError(f"stream {spec.name!r} already open")
+        self.history(HistoryEvent(
+            HistoryEventType.STREAM_OPENED, data=spec.journal_data()))
+        driver = StreamDriver(self, spec).start()
+        self.streams[spec.name] = driver
+        return driver
+
+    def _resume_streams(self, parser: Any) -> None:
+        """Resume every non-retired journaled stream (recovery): sealed
+        windows are served from the ledger, the first uncommitted window
+        re-runs from its surviving spool (StreamDriver._resume_from)."""
+        from tez_tpu_torch.am.streaming import StreamDriver
+        for stream_id, rec in parser.stream_records().items():
+            if stream_id in self.streams:
+                continue
+            driver = StreamDriver.resume(self, rec)
+            if driver is not None:
+                self.streams[stream_id] = driver
+                log.info("stream %s: resumed after AM restart", stream_id)
+
+    @staticmethod
+    def _is_window_plan(plan: Optional[DAGPlan]) -> bool:
+        """True for a per-window DAG cloned by a StreamDriver — its
+        replay belongs to the stream's ledger, never the generic DAG
+        recovery path (re-running window N outside the driver would race
+        the resumed stream and break exactly-once)."""
+        if plan is None:
+            return False
+        return bool((plan.dag_conf or {}).get("tez.runtime.stream.id"))
 
     def wait_for_dag(self, dag_id: DAGId,
                      timeout: Optional[float] = None) -> DAGState:
@@ -655,10 +722,25 @@ class DAGAppMaster:
                             data.dag_id, data.plan.name)
                     self._dag_done.notify_all()
                 continue
+            if self._is_window_plan(data.plan):
+                # a stream's in-flight window DAG: keep the id sequence
+                # monotonic but leave the re-run to the resumed driver —
+                # the window-commit ledger, not DAG recovery, decides
+                # whether window N runs again
+                try:
+                    seq = int(data.dag_id.rsplit("_", 1)[1])
+                    self._dag_seq = max(self._dag_seq, seq)
+                except (ValueError, IndexError):
+                    pass
+                log.info("dag %s: window DAG of stream %s — deferring to "
+                         "stream resume", data.dag_id,
+                         data.plan.dag_conf.get("tez.runtime.stream.id"))
+                continue
             recovered = self._recover_one(data)
             if recovered is not None:
                 last = recovered
         self._replay_admission_queue(parser)
+        self._resume_streams(parser)
         return last
 
     def _recover_one(self, data: Any) -> Optional[DAGId]:
@@ -744,6 +826,12 @@ class DAGAppMaster:
                           rec["decode_error"])
                 continue
             plan = DAGPlan.deserialize(bytes.fromhex(rec["plan"]))
+            if self._is_window_plan(plan):
+                # the resumed StreamDriver resubmits its own windows;
+                # requeueing here would double-run the window
+                log.info("queued submission %s (%s): window DAG, deferring "
+                         "to stream resume", rec["sub_id"], plan.name)
+                continue
             self.admission.requeue(plan, rec.get("tenant") or "",
                                    rec["sub_id"])
 

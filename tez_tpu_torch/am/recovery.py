@@ -11,9 +11,8 @@ The port's copy of tez_tpu.am.recovery: the journal and its replay.  Every
 journaled payload is host data (ShufflePayload fields, bytes, JSON values):
 the port's outputs put no tensor into an event, so no CUDA tensor reaches
 the journal, and a pickled payload replays only under
-tez.dag.recovery.trusted-staging.  Streaming is not ported (the AM refuses
-tez.runtime.stream.id), so the parser has no stream_records: a port journal
-holds no window ledger.
+tez.dag.recovery.trusted-staging.  ``stream_records`` replays a stream's
+window ledger for the AM's stream resume.
 """
 from __future__ import annotations
 
@@ -411,6 +410,52 @@ class RecoveryParser:
             else:
                 rec["decode_error"] = "queued record carries no plan"
             out.append(rec)
+        return out
+
+    def stream_records(self) -> Dict[str, Dict[str, Any]]:
+        """Streaming recovery state, per stream id (docs/streaming.md).
+
+        Replays the window-commit ledger: a window with a
+        ``WINDOW_COMMIT_FINISHED`` record is sealed forever (a successor
+        AM serves it from disk, never re-runs it); the first window
+        after ``last_committed`` is where the resumed stream picks up.
+        Each value::
+
+            {"spec": <STREAM_OPENED data>, "retired": bool,
+             "committed": set[int], "aborted": set[int],
+             "open_started": set[int],   # STARTED with no FINISHED/ABORTED
+             "last_committed": int}
+        """
+        out: Dict[str, Dict[str, Any]] = {}
+
+        def rec(stream: str) -> Dict[str, Any]:
+            if stream not in out:
+                out[stream] = {"spec": None, "retired": False,
+                               "committed": set(), "aborted": set(),
+                               "open_started": set(), "last_committed": 0}
+            return out[stream]
+
+        for ev in self.read_events():
+            t = ev.event_type
+            if t is HistoryEventType.STREAM_OPENED:
+                r = rec(ev.data.get("stream", ""))
+                r["spec"] = dict(ev.data)
+            elif t is HistoryEventType.STREAM_RETIRED:
+                rec(ev.data.get("stream", ""))["retired"] = True
+            elif t in (HistoryEventType.WINDOW_COMMIT_STARTED,
+                       HistoryEventType.WINDOW_COMMIT_FINISHED,
+                       HistoryEventType.WINDOW_COMMIT_ABORTED):
+                r = rec(ev.data.get("stream", ""))
+                w = int(ev.data.get("window_id", 0))
+                if t is HistoryEventType.WINDOW_COMMIT_STARTED:
+                    r["open_started"].add(w)
+                elif t is HistoryEventType.WINDOW_COMMIT_FINISHED:
+                    r["open_started"].discard(w)
+                    r["committed"].add(w)
+                    r["last_committed"] = max(r["last_committed"], w)
+                else:
+                    r["open_started"].discard(w)
+                    r["aborted"].add(w)
         return out
 
     def _parse_dag(self, dag_id: str, plan: Optional[DAGPlan],

@@ -11,8 +11,8 @@ The TaskScheduler SPI seam (schedule/deallocate/total_slots) is what a
 TPU-pod or GKE scheduler plugin would implement instead
 (reference: tez-api serviceplugins TaskScheduler).
 
-The port's copy of tez_tpu.am.task_scheduler; the DAG-aware preemption
-scheduler ("dag-aware") is not ported yet.
+The port's copy of tez_tpu.am.task_scheduler, the DAG-aware preemption
+scheduler ("dag-aware") included.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import heapq
 import itertools
 import logging
 import threading
-from typing import Any, Dict, List, Optional, Set
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 from tez_tpu_torch.common import clock
 from tez_tpu_torch.am.events import (SchedulerEvent, SchedulerEventType,
@@ -376,6 +376,98 @@ class LocalTaskSchedulerService(TaskSchedulerService):
             self._available.notify_all()
 
 
+class DagAwareTaskSchedulerService(LocalTaskSchedulerService):
+    """DAG-topology-aware preemption (reference:
+    DagAwareYarnTaskScheduler.java:96, maybePreempt:1172).
+
+    The stock scheduler preempts ANY strictly-lower-priority running
+    attempt when better work waits.  That can kill unrelated branch work
+    whose eviction cannot unblock the waiting request — and whose re-run
+    throws away progress.  Here victims must be DESCENDANTS of a vertex
+    with requests waiting at the best priority (the reference's
+    blocked-set ∩ assigned-vertices rule): preempting a descendant is
+    always productive, because the descendant cannot finish before its
+    blocked ancestor anyway."""
+
+    def __init__(self, ctx: Any, num_slots: int):
+        super().__init__(ctx, num_slots)
+        self._descendants_cache: Dict[str, Dict[str, Set[str]]] = {}
+
+    # ----------------------------------------------------------- topology
+    def _dag_for(self, attempt_id: TaskAttemptId) -> Any:
+        """Resolve the attempt's DAG through the live registry (concurrent
+        session DAGs); falls back to current_dag for older contexts."""
+        find = getattr(self.ctx, "find_dag", None)
+        if find is not None:
+            return find(attempt_id.vertex_id.dag_id)
+        return getattr(self.ctx, "current_dag", None)
+
+    def _descendants(self, dag: Any) -> Dict[str, Set[str]]:
+        """vertex name -> set of (transitive) descendant vertex names for
+        one DAG (reference: vertexDescendants BitSets); cached per dag_id
+        since several DAGs stay live at once."""
+        if dag is None:
+            return {}
+        key = str(dag.dag_id)
+        cached = self._descendants_cache.get(key)
+        if cached is not None:
+            return cached
+        children = {name: [e.destination_vertex.name
+                           for e in v.out_edges.values()]
+                    for name, v in dag.vertices.items()}
+        memo: Dict[str, Set[str]] = {}
+
+        def desc(name: str) -> Set[str]:
+            got = memo.get(name)
+            if got is not None:
+                return got
+            memo[name] = out = set()   # pre-seed: DAG => no cycles, but a
+            # partially-built entry keeps this robust anyway
+            for c in children.get(name, ()):
+                out.add(c)
+                out |= desc(c)
+            return out
+
+        result = {name: desc(name) for name in children}
+        if len(self._descendants_cache) > 16:    # bound the session cache
+            self._descendants_cache.clear()
+        self._descendants_cache[key] = result
+        return result
+
+    def _vertex_name(self, attempt_id: TaskAttemptId) -> str:
+        dag = self._dag_for(attempt_id)
+        if dag is None:
+            return ""
+        v = dag.vertex_by_id(attempt_id.vertex_id)
+        return v.name if v is not None else ""
+
+    def _victim_filter(self, waiting: "Set[TaskAttemptId]"):
+        """Victims must be descendants of ANY vertex with queued requests
+        (the reference's blocked-set ∩ assigned-vertices rule) — evicting a
+        descendant always helps, because it cannot finish before its
+        blocked ancestor anyway.  Blocked entries are (dag_id, vertex)
+        pairs: vertex names may collide across concurrent DAGs, and
+        cross-DAG preemption through a name collision would be unfair."""
+        blocked: Set[Tuple[str, str]] = set()
+        for a in waiting:
+            dag = self._dag_for(a)
+            if dag is None:
+                continue
+            descendants = self._descendants(dag)
+            for name in descendants.get(self._vertex_name(a), set()):
+                blocked.add((str(dag.dag_id), name))
+
+        def _is_victim(att: TaskAttemptId) -> bool:
+            # resolve the victim's DAG through the same registry the
+            # blocked set was built from, so both sides agree on the id
+            dag = self._dag_for(att)
+            if dag is None:
+                return False
+            return (str(dag.dag_id), self._vertex_name(att)) in blocked
+
+        return _is_victim
+
+
 def create_task_scheduler(ctx: Any, num_slots: int) -> TaskSchedulerService:
     """tez.am.task.scheduler.class: 'local' | 'dag-aware' | module:Class."""
     from tez_tpu_torch.common import config as C
@@ -384,8 +476,7 @@ def create_task_scheduler(ctx: Any, num_slots: int) -> TaskSchedulerService:
     if name in ("", "local", None):
         return LocalTaskSchedulerService(ctx, num_slots)
     if name == "dag-aware":
-        raise NotImplementedError(
-            "tez.am.task.scheduler.class=dag-aware: not ported yet")
+        return DagAwareTaskSchedulerService(ctx, num_slots)
     from tez_tpu_torch.common.payload import resolve_class
     return resolve_class(name)(ctx, num_slots)
 

@@ -2,9 +2,11 @@
 
 One daemon thread per AM (``tez.am.metrics.sample-period-ms``, 0 = off):
 every tick it sweeps the metrics registry and every registered collector
-into the bounded rings of :mod:`tez_tpu_torch.obs.timeseries`.  The tick
-is the only hot-path cost of the live plane: a dict snapshot plus ring
-appends, off every data-plane lock.
+into the bounded rings of :mod:`tez_tpu_torch.obs.timeseries`, then runs
+the SLO watchdog's burn-rate evaluation against the fresh windows, so
+burn-alert latency is bounded by the sampler period, not by DAG
+completions.  The tick is the only hot-path cost of the live plane: a
+dict snapshot plus ring appends, off every data-plane lock.
 
 On a graceful stop the sampler journals one ``TELEMETRY_SNAPSHOT``
 summary event carrying the plane's overflow accounting (ring evictions,
@@ -13,20 +15,19 @@ collector failures, scrape errors).
 A crash journals nothing — the accounting dies with the incarnation.
 :meth:`TelemetrySampler.live_status` is the continuous doctor's payload:
 per-plane instrumented-busy blame over the live windows, next to tenants,
-queue depth and lane occupancy.
+streams, queue depth, lane occupancy and active SLO breaches and burns.
 
-The port's copy of tez_tpu.am.telemetry.  The port has no SLO watchdog
-(burn-rate evaluation), no streams and no web UI to serve ``live_status``:
-the AM carries no ``slo_watchdog`` or ``streams``, so those sections of the
-payload stay empty.  Its collectors are tez_tpu's three: the buffer store's
-tier and tenant bytes, the shuffle service's registered-run inventory and
-the mesh exchange's per-device lane occupancy.
+The port's copy of tez_tpu.am.telemetry.  The port has no web UI to serve
+``live_status`` yet; callers read it directly.  Its collectors are
+tez_tpu's three: the buffer store's tier and tenant bytes, the shuffle
+service's registered-run inventory and the mesh exchange's per-device
+lane occupancy.
 """
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 from tez_tpu_torch.obs import timeseries
 
@@ -80,10 +81,13 @@ class TelemetrySampler:
                 log.exception("telemetry tick failed")
 
     def tick(self, now_ns: Optional[int] = None) -> None:
-        """One sweep: sample the rings.  Public so tests drive the plane
-        deterministically without a thread."""
+        """One sweep: sample the rings, then burn-evaluate.  Public so
+        tests drive the plane deterministically without a thread."""
         timeseries.registry().sample(now_ns)
         self.ticks += 1
+        wd = getattr(self.am, "slo_watchdog", None)
+        if wd is not None:
+            wd.evaluate_burn(now_ns)
 
     def stop(self) -> None:
         """Graceful stop: halt the thread, then journal the plane's
@@ -165,31 +169,12 @@ def window_rows(window_s: float, kind: Optional[str] = None
                 ) -> List[Dict[str, Any]]:
     """Flat windowed-aggregate rows for every live series — the
     ``graft top`` series table (label-split like the exposition)."""
+    from tez_tpu_torch.obs import exposition
     reg = timeseries.registry()
     rows: List[Dict[str, Any]] = []
     for name, w in reg.windows(window_s, kind=kind).items():
         if w is None:
             continue
-        base, labels = split_labels(name)
+        base, labels = exposition.split_labels(name)
         rows.append(dict(w, name=base, labels=labels, series=name))
     return rows
-
-
-#: a stream series' aggregate segment (``stream.window.*``), which names
-#: no stream
-_STREAM_AGGREGATE_SEGMENT = "window"
-
-
-def split_labels(name: str) -> Tuple[str, Dict[str, str]]:
-    """Flat dynamic series name -> (base family, labels): the port's copy
-    of tez_tpu.obs.exposition.split_labels (the exposition module itself
-    is not ported)."""
-    parts = name.split(".")
-    if parts[0] == "tenant" and len(parts) >= 3:
-        return "tenant." + ".".join(parts[2:]), {"tenant": parts[1]}
-    if parts[0] == "stream" and len(parts) >= 3 \
-            and parts[1] != _STREAM_AGGREGATE_SEGMENT:
-        return "stream." + ".".join(parts[2:]), {"stream": parts[1]}
-    if parts[0] == "mesh" and len(parts) >= 4 and parts[1] == "lane":
-        return "mesh.lane." + ".".join(parts[3:]), {"lane": parts[2]}
-    return name, {}

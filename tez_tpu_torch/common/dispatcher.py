@@ -1,7 +1,8 @@
 """Central event bus for the orchestrator.
 
 Reference parity: tez-common/.../AsyncDispatcher.java:50 (single-threaded typed
-event bus; all control-plane state mutation is serialized through it).
+event bus; all control-plane state mutation is serialized through it) and
+AsyncDispatcherConcurrent.java (hash-sharded variant for event storms).
 
 Design kept from the reference (SURVEY.md §5.2): *all control-plane mutation on
 one event loop* — state machines are never locked, they are only touched from
@@ -11,8 +12,8 @@ the dispatcher thread.  Two modes:
 - ``DrainDispatcher`` — same bus but manually pumped (``drain()``), giving the
   deterministic unit-test style of the reference's DrainDispatcher.
 
-The port's copy of tez_tpu.common.dispatcher; the hash-sharded variant
-(ShardedDispatcher) is not ported yet.
+The port's copy of tez_tpu.common.dispatcher, with ShardedDispatcher
+(``tez.am.concurrent.dispatcher.shards`` > 1).
 """
 from __future__ import annotations
 
@@ -177,3 +178,87 @@ class _MultiHandler:
     def __call__(self, event: Event) -> None:
         for h in self.handlers:
             h(event)
+
+
+class ShardedDispatcher(Dispatcher):
+    """Hash-sharded event bus for event storms: events partition across N
+    worker queues by a shard key so unrelated entities process in parallel
+    while per-entity ordering is preserved.
+
+    Reference: tez-common AsyncDispatcherConcurrent.java (used by the AM for
+    vertex/task event storms at high task counts).  The shard key defaults
+    to the event's entity id attribute when present.
+    """
+
+    def __init__(self, name: str = "sharded-dispatcher", num_shards: int = 4):
+        super().__init__(name)
+        self.num_shards = max(1, num_shards)
+        self._shards = [Dispatcher(f"{name}-{i}")
+                        for i in range(self.num_shards)]
+        for s in self._shards:
+            s._handlers = self._handlers   # shared registry
+            # forward errors at delivery time so assigning self.on_error
+            # after start() still reaches the funnel
+            s.on_error = self._forward_error
+
+    def _forward_error(self, exc: BaseException, event: Event) -> None:
+        if self.on_error is not None:
+            self.on_error(exc, event)
+        else:
+            raise exc
+
+    def peak_depths(self) -> "list[int]":
+        """Per-shard high-water queue depths (storm diagnostics)."""
+        return [s.peak_in_flight for s in self._shards]
+
+    def _shard_key(self, event: Event) -> int:
+        """The shard of the state machine the event drives.  An event names
+        its target and may carry finer ids besides (a vertex's
+        V_TASK_COMPLETED names the task and the attempt), so the coarsest
+        id present is the target.  An attempt's events go to its task's
+        shard: a task drives its attempts' state machines in place (it
+        kills the losers when one succeeds).  tez_tpu keys by the finest id
+        an event carries, so one vertex's or one task's events can run on
+        two shard threads at once (ROADMAP Queue 3)."""
+        for attr in ("dag_id", "vertex_id", "task_id"):
+            v = getattr(event, attr, None)
+            if v is not None:
+                return hash(str(v))
+        v = getattr(event, "attempt_id", None)
+        if v is not None:
+            return hash(str(getattr(v, "task_id", v)))
+        return 0
+
+    def dispatch(self, event: Event) -> None:
+        self._shards[self._shard_key(event) % self.num_shards].dispatch(event)
+
+    def start(self) -> None:
+        for s in self._shards:
+            s.start()
+
+    def stop(self) -> None:
+        for s in self._shards:
+            s.stop()
+
+    def await_drained(self, timeout: float | None = None) -> bool:
+        """Drained only when TWO consecutive full passes observe every shard
+        empty with no deliveries in between — handlers may cascade events
+        ACROSS shards, so a single quiet pass has a TOCTOU window.  The
+        shared deadline bounds total wait at `timeout`."""
+        import time as _time
+        deadline = None if timeout is None else _time.monotonic() + timeout
+        prev_gen = -1
+        while True:
+            for s in self._shards:
+                remaining = None if deadline is None else \
+                    max(0.0, deadline - _time.monotonic())
+                if not s.await_drained(remaining):
+                    return False
+            gen = sum(sh._delivered for sh in self._shards)
+            if gen == prev_gen:
+                # nothing was delivered between two fully-drained passes:
+                # no cascade can be in flight
+                return True
+            prev_gen = gen
+            if deadline is not None and _time.monotonic() >= deadline:
+                return False

@@ -98,6 +98,15 @@ KNOWN_POINTS: Dict[str, str] = {
         "observability point fired wherever a stale-WINDOW actor is "
         "rejected — the streaming generalization of fence.stale_epoch "
         "(umbilical, shuffle register/push/fetch, store publish)",
+    "stream.window.commit":
+        "am/streaming.py exactly-once window committer, fired between the "
+        "WINDOW_COMMIT_STARTED and WINDOW_COMMIT_FINISHED ledger records "
+        "(detail = <stream>@w<window>); fail mode crashes the stream "
+        "mid-commit",
+    "stream.ingest":
+        "am/streaming.py StreamDriver.ingest (detail = <stream>@w<window>); "
+        "delay mode paces the source, fail mode drops the ingest call with "
+        "a typed error",
     "am.heartbeat":
         "am/task_comm.py heartbeat delivery (shared by local and umbilical "
         "paths)",

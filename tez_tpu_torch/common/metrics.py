@@ -1,19 +1,21 @@
-"""Latency histograms and gauges: the port's copy of what it uses of
-tez_tpu.common.metrics (observe, timer, set_gauge, registry().histograms()).
+"""Latency histograms, gauges and Prometheus text: the port's copy of
+tez_tpu.common.metrics.
 
 Each observation lands in a process-global histogram and, when the caller
 passes its TezCounters, in the ``LatencyHistogram.<name>`` bucket counters
 (``LE_<bound>``, ``COUNT``, ``SUM_US``) exactly as tez_tpu lays them out;
 an armed flight recorder journals it too.  Buckets are powers of two in
 milliseconds (1 ms .. 65536 ms, plus +Inf).  Gauges hold the last value
-set (the async plane's ``device.breaker.state``).
+set (the async plane's ``device.breaker.state``).  The registry starts
+empty: tez_tpu pre-registers its well-known families for its web UI's
+scrape, which the port does not serve.
 """
 from __future__ import annotations
 
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 from tez_tpu_torch.obs import flight as _flight
 
@@ -55,6 +57,15 @@ def quantile_from_buckets(counts: List[int], q: float) -> float:
     return BUCKET_BOUNDS_MS[-1]
 
 
+def max_bound_from_buckets(counts: List[int]) -> float:
+    """Upper bound of the highest occupied bucket (0 when empty)."""
+    for i in range(len(counts) - 1, -1, -1):
+        if counts[i] > 0:
+            return (BUCKET_BOUNDS_MS[i] if i < len(BUCKET_BOUNDS_MS)
+                    else float("inf"))
+    return 0.0
+
+
 class Histogram:
     """Fixed-bucket latency histogram; thread-safe."""
 
@@ -80,6 +91,13 @@ class Histogram:
             out.count = self.count
             out.sum_ms = self.sum_ms
             return out
+
+    def quantile(self, q: float) -> float:
+        return quantile_from_buckets(self.counts, q)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "counts": list(self.counts),
+                "count": self.count, "sum_ms": self.sum_ms}
 
 
 class MetricsRegistry:
@@ -109,6 +127,11 @@ class MetricsRegistry:
     def gauges(self) -> Dict[str, float]:
         with self._lock:
             return dict(self._gauges)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._hist = {}
+            self._gauges.clear()
 
 
 _REG = MetricsRegistry()
@@ -142,3 +165,83 @@ def timer(name: str, counters: Any = None) -> Iterator[None]:
         yield
     finally:
         observe(name, (time.perf_counter() - t0) * 1000.0, counters)
+
+
+# --------------------------------------------------------------------------
+# Reading histograms back out of counter dumps (history JSONL / to_dict)
+# --------------------------------------------------------------------------
+
+def histograms_from_counters(
+        counters_dict: Mapping[str, Mapping[str, int]]
+) -> Dict[str, Dict[str, Any]]:
+    """Decode LatencyHistogram.* counter groups from a TezCounters.to_dict
+    (or history dump) back into {name: {counts, count, sum_us, p50, p95,
+    max_ms}} summaries."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for gname, cs in counters_dict.items():
+        if not gname.startswith(HIST_GROUP_PREFIX):
+            continue
+        name = gname[len(HIST_GROUP_PREFIX):]
+        counts = [int(cs.get(b, 0)) for b in _BUCKET_COUNTER_NAMES]
+        out[name] = {
+            "counts": counts,
+            "count": int(cs.get("COUNT", sum(counts))),
+            "sum_us": int(cs.get("SUM_US", 0)),
+            "p50": quantile_from_buckets(counts, 0.50),
+            "p95": quantile_from_buckets(counts, 0.95),
+            "max_ms": max_bound_from_buckets(counts),
+        }
+    return out
+
+
+# --------------------------------------------------------------------------
+# Prometheus text exposition (version 0.0.4)
+# --------------------------------------------------------------------------
+
+def _sanitize(name: str) -> str:
+    out = "".join(ch if (ch.isalnum() or ch == "_") else "_" for ch in name)
+    return out if not out[:1].isdigit() else "_" + out
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+
+
+def render_prometheus(
+        histograms: Mapping[str, Histogram],
+        gauges: Mapping[str, float],
+        counters_dict: Optional[Mapping[str, Mapping[str, int]]] = None,
+) -> str:
+    """Render the standard text exposition format.  Histograms emit
+    cumulative le-labelled buckets (Prometheus semantics) even though the
+    internal representation is per-bucket."""
+    lines: List[str] = []
+    for name in sorted(histograms):
+        h = histograms[name]
+        metric = f"tez_latency_{_sanitize(name)}_ms"
+        lines.append(f"# HELP {metric} latency histogram for {name}")
+        lines.append(f"# TYPE {metric} histogram")
+        cum = 0
+        for i, bound in enumerate(BUCKET_BOUNDS_MS):
+            cum += h.counts[i]
+            lines.append(f'{metric}_bucket{{le="{bound:g}"}} {cum}')
+        cum += h.counts[-1]
+        lines.append(f'{metric}_bucket{{le="+Inf"}} {cum}')
+        lines.append(f"{metric}_sum {h.sum_ms:g}")
+        lines.append(f"{metric}_count {h.count}")
+    for name in sorted(gauges):
+        metric = f"tez_{_sanitize(name)}"
+        lines.append(f"# TYPE {metric} gauge")
+        lines.append(f"{metric} {gauges[name]:g}")
+    if counters_dict:
+        lines.append("# HELP tez_counter Tez counter value")
+        lines.append("# TYPE tez_counter gauge")
+        for gname in sorted(counters_dict):
+            if gname.startswith(HIST_GROUP_PREFIX):
+                continue          # already rendered as histograms above
+            for cname in sorted(counters_dict[gname]):
+                lines.append(
+                    f'tez_counter{{group="{_escape_label(gname)}",'
+                    f'name="{_escape_label(cname)}"}} '
+                    f"{counters_dict[gname][cname]}")
+    return "\n".join(lines) + "\n"

@@ -348,6 +348,16 @@ class OrderedPartitionedKVOutput(LogicalOutput):
                                 host=self.host["host"],
                                 port=self.host["port"])
 
+    def abort(self) -> None:
+        """The attempt was killed: the sorter drops its spans (its pipeline
+        gives its streams back) and nothing more is registered or
+        pushed."""
+        sorter = getattr(self, "sorter", None)
+        if sorter is not None:
+            sorter.abort()
+        if getattr(self, "_pusher", None) is not None:
+            self._pusher.close()
+
     def close(self) -> List[TezAPIEvent]:
         if self._reused:
             # publish_reused() already registered + announced the output;

@@ -203,6 +203,15 @@ _TORCH_BITS = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32,
 #: pair taken back here still has the blocks its earlier spans freed.
 _IDLE_PAIRS: Dict[torch.device, List[tuple]] = {}
 _IDLE_LOCK = threading.Lock()
+#: stream pairs held by open SpanStreams (taken and not given back yet)
+_HELD_PAIRS = 0
+
+
+def held_stream_pairs() -> int:
+    """How many SpanStreams hold a pair now: 0 once every pipeline closed,
+    a killed attempt's included."""
+    with _IDLE_LOCK:
+        return _HELD_PAIRS
 
 
 class SpanStreams:
@@ -219,6 +228,7 @@ class SpanStreams:
     streams and no slots: staging hands numpy memory to torch as is."""
 
     def __init__(self, device="cuda", slots: int = 2) -> None:
+        global _HELD_PAIRS
         self.device = resolve_device(device)
         self.cuda = self.device.type == "cuda"
         self.copy = self.compute = None
@@ -228,6 +238,7 @@ class SpanStreams:
             with _IDLE_LOCK:
                 idle = _IDLE_PAIRS.get(self.device)
                 pair = idle.pop() if idle else None
+                _HELD_PAIRS += 1
             if pair is None:
                 with torch.cuda.device(self.device):
                     pair = (torch.cuda.Stream(), torch.cuda.Stream())
@@ -239,12 +250,14 @@ class SpanStreams:
         """Give the streams back for a later SpanStreams on this device;
         the owner enqueues nothing more on them (work already enqueued
         stays ordered before the next owner's).  Idempotent."""
+        global _HELD_PAIRS
         if not self.cuda or self._closed:
             return
         self._closed = True
         with _IDLE_LOCK:
             _IDLE_PAIRS.setdefault(self.device, []).append(
                 (self.copy, self.compute))
+            _HELD_PAIRS -= 1
 
     def on(self, stream):
         """Context: this pipeline's device and `stream` current."""

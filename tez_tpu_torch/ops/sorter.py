@@ -269,6 +269,10 @@ class DeviceSorter:
         self._pipeline = None
         self._streams = None
         self._async_store_ids: List[int] = []
+        #: set by abort() under _abort_lock: completions still in flight
+        #: are dropped
+        self._aborted = False
+        self._abort_lock = threading.Lock()
         #: failure containment of the async plane: watchdog deadlines,
         #: host-engine failover through the circuit breaker, the OOM split
         #: floor.  breaker=None = the sticky per-process breaker.
@@ -621,12 +625,19 @@ class DeviceSorter:
         under delays); coalesced groups complete under their first spill
         id."""
         sid = min(ids)
-        if self.on_spill is not None:
-            self.on_spill(run, sid)
-        else:
-            with self._store_lock:
-                self._store_run(run)
-                self._async_store_ids.append(sid)
+        # under abort()'s lock: a completion either ships or stores before
+        # the abort (its run is dropped with the others) or finds the
+        # sorter aborted; none ships once abort() took the lock
+        with self._abort_lock:
+            if self._aborted:
+                return
+            on_spill = self.on_spill
+            if on_spill is not None:
+                on_spill(run, sid)
+            else:
+                with self._store_lock:
+                    self._store_run(run)
+                    self._async_store_ids.append(sid)
 
     def _drain_async(self) -> None:
         """Block until every submitted span completed, then restore spill-id
@@ -831,6 +842,32 @@ class DeviceSorter:
                 self._executor = None
         if error is not None:
             raise error
+
+    def abort(self) -> None:
+        """A killed attempt's teardown (its task runner calls it; tez_tpu
+        leaves the sorter as the kill found it).  Spans already dispatched
+        finish on their streams, since a launched kernel cannot be
+        recalled; then the async pipeline's threads stop, its stream pair
+        goes back to SpanStreams for the next pipeline on this device, and
+        every run is dropped with its spill file.  Nothing is shipped or
+        published: completions of the spans in flight are discarded."""
+        with self._abort_lock:
+            self._aborted = True
+            self.on_spill = None
+        pipe, self._pipeline = self._pipeline, None
+        try:
+            if pipe is not None:
+                pipe.drain()
+            self._drain_pending()
+        finally:
+            if pipe is not None:
+                self._streams.close()
+            for run in self._runs:
+                if isinstance(run, str) and os.path.exists(run):
+                    os.remove(run)
+            self._runs = []
+            self._runs_nbytes = 0
+            self._async_store_ids = []
 
     # -- flush ---------------------------------------------------------------
     def flush(self) -> Optional[Run]:

@@ -87,6 +87,8 @@ class TaskRunner:
         # dispatch lock serializes replay vs. new heartbeat deliveries so
         # handle_events is single-threaded and in arrival order.
         self._inputs_ready = threading.Event()
+        #: every output is served from sealed lineage: inputs stay idle
+        self._serving_reuse = False
         self._dispatch_lock = threading.Lock()
         self._trapped_incoming: List[Tuple[str, TezAPIEvent]] = []
 
@@ -145,6 +147,8 @@ class TaskRunner:
             # fatal_error() funnels through the kill flag; report it as a
             # FATAL failure, not a kill (kills respawn, fatals fail the DAG).
             state = "FAILED" if self._fatal is not None else "KILLED"
+            if state == "KILLED":
+                self._abort_outputs()
         except BaseException as e:  # noqa: BLE001
             log.exception("task %s failed", self.spec.attempt_id)
             state = "FAILED"
@@ -223,9 +227,15 @@ class TaskRunner:
 
         # auto-start non-merged inputs (reference: startable inputs started
         # by the framework before processor.run)
-        for inp in self.inputs.values():
-            if not isinstance(inp, MergedLogicalInput):
-                inp.start()
+        # an attempt every output of which will be served from sealed
+        # lineage never reads its inputs: they are not started and their
+        # events are dropped (tez_tpu starts them, and how much they fetch
+        # before the reuse closes them follows the threads' timing)
+        self._serving_reuse = self._reuse_ready()
+        if not self._serving_reuse:
+            for inp in self.inputs.values():
+                if not isinstance(inp, MergedLogicalInput):
+                    inp.start()
 
         # replay any events trapped while initializing (ready-flag flip and
         # replay are atomic w.r.t. heartbeat deliveries)
@@ -235,6 +245,11 @@ class TaskRunner:
             if trapped:
                 self._dispatch_incoming(trapped)
 
+    def _reuse_ready(self) -> bool:
+        outs = list(self.outputs.values())
+        return bool(outs) and all(
+            getattr(out, "reuse_available", lambda: False)() for out in outs)
+
     def _try_reuse(self) -> bool:
         """Cross-DAG output reuse: when EVERY output reports a sealed store
         run for this task's lineage, alias them under this attempt's path
@@ -242,14 +257,9 @@ class TaskRunner:
         outputs, pipelined shuffle, lineage off/miss) forces a full run —
         partial reuse would publish a mix of old and new data."""
         self.check_killed()
-        outs = list(self.outputs.values())
-        if not outs:
+        if not self._serving_reuse:
             return False
-        for out in outs:
-            probe = getattr(out, "reuse_available", None)
-            if probe is None or not probe():
-                return False
-        for out in outs:
+        for out in self.outputs.values():
             evs = out.publish_reused() or []
             if evs:
                 out.context.send_events(evs)
@@ -262,6 +272,11 @@ class TaskRunner:
         # delay mode makes this attempt a straggler (speculation bait);
         # fail mode crashes it into the ordinary TA_FAILED retry path
         faults.fire("task.run", detail=str(self.spec.attempt_id))
+        # an attempt killed while it was held (a speculation loser, a
+        # crashed AM's runner fenced on its heartbeat) does not start its
+        # processor: tez_tpu's runs it until its first progress report,
+        # merging and launching on a dead attempt's behalf
+        self.check_killed()
         assert self.processor is not None
         # Constituents of a group stay in self.inputs (they receive events)
         # but the processor only sees the merged input (reference:
@@ -300,6 +315,22 @@ class TaskRunner:
             if evs:
                 out.context.send_events(evs)
         self.processor.close()
+
+    def _abort_outputs(self) -> None:
+        """A killed attempt (a speculation loser, a preemption victim)
+        tears its outputs down: an output with an ``abort`` (the ordered
+        output's sorter) lets its spans in flight finish, gives its device
+        streams back and publishes nothing, so the next attempt in this
+        runner finds the span plane as a fresh one would."""
+        for out in self.outputs.values():
+            abort = getattr(out, "abort", None)
+            if abort is None:
+                continue
+            try:
+                abort()
+            except Exception:  # noqa: BLE001 — the attempt is dead
+                log.exception("task %s: output abort failed",
+                              self.spec.attempt_id)
 
     # -- heartbeat -----------------------------------------------------------
     def _drain_events(self) -> List[TezEvent]:
@@ -347,6 +378,8 @@ class TaskRunner:
                     self._dispatch_incoming(resp.events)
 
     def _dispatch_incoming(self, events: List[Tuple[str, TezAPIEvent]]) -> None:
+        if self._serving_reuse:
+            return
         by_input: Dict[str, List[TezAPIEvent]] = {}
         for input_name, ev in events:
             if isinstance(ev, CustomProcessorEvent):

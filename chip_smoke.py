@@ -20,7 +20,9 @@ Phases, each checked, none allowed to fail:
    keys too, an all-equal run, sparse sorted queries), a stable torch.sort
    of the same packing for the merge-path pair, which is also timed
    against the composite it replaced on the main path (two merge-rank
-   launches and a scatter);
+   launches and a scatter); and fnv_hash_bytes over FNV_SWEEP (other
+   widths, partition counts, a short last tile, unaligned bases, one
+   row), each case bit-exact, its time beside its bound;
 2b. each binding of the host library (ops/native.py) timed on the card's
    host at the main path's sizes (an 80 MiB tokenizer chunk of phase 11's
    corpus, 64 MB gathers, phase 8's 64 MB span and four of its runs) and
@@ -259,8 +261,9 @@ Phases, each checked, none allowed to fail:
    scale cut (BENCH_SIZES): A, profile_kernels over 2^20 rows, the plain
    FNV version against the kernel through hash_partition and the host
    encode plus upload against encode_keys_device, each pair equal first;
-   B, owc_proxy_counts (the C++ OrderedWordCount proxy, 4 x 4) over phase
-   11's corpus, equal to its golden, its wall beside 11 A's (phase 4 ran
+   B, owc_proxy_counts (the C++ OrderedWordCount proxy, 4 x 4) over the
+   first 256 MiB of phase 11's corpus (15(b)'s slice; cut from all 512
+   MiB), equal to its golden, its seconds a byte beside 11 A's (phase 4 ran
    the PipelinedSorter proxy over its records in 2 x producers spans: its
    partition counts, key order and values the merged run's); C,
    bench_exchange's four legs on a mesh of 8 logical workers of the card,
@@ -548,6 +551,62 @@ def rank_tensors(run: tuple, query: tuple, dev) -> tuple:
             torch.from_numpy(query[2]).to(dev))
 
 
+#: phase 2's sweep of fnv_hash_bytes beside its main row (N = 2^23, W = 16,
+#: P = NUM_PARTITIONS): (case, rows, width, partitions, view).  The
+#: widths the kernel templates and one it reads at run time (12), the
+#: modulo as a mask (8), by its magic (7, 2^31 - 1), a short last tile,
+#: bases off 16-byte alignment (view: the rows from row 1 of a W = 12
+#: matrix, lengths likewise) and a single row
+FNV_SWEEP = tuple((f"W={w}", 1 << 23, w, NUM_PARTITIONS, False)
+                  for w in (4, 8, 12, 32, 64)) + (
+    ("P=8", 1 << 23, 16, 8, False),
+    ("P=7", 1 << 23, 16, 7, False),
+    ("P=2^31-1", 1 << 23, 16, 2 ** 31 - 1, False),
+    ("tail", (1 << 23) + 333, 16, NUM_PARTITIONS, False),
+    ("view", 1 << 23, 12, NUM_PARTITIONS, True),
+    ("N=1", 1, 16, NUM_PARTITIONS, False))
+
+
+def fnv_timing_calls(n: int) -> int:
+    """Calls a FNV sweep case is timed over: a small N times the wrapper's
+    host path, which needs more calls to settle."""
+    return 20 if n >= 1 << 20 else 200
+
+
+def fnv_inputs(g, n: int, w: int, dev, view: bool = False) -> tuple:
+    """uint8[N, W] random key bytes and int32[N] lengths uniform in 0..W,
+    1% of them -1 (pad rows), drawn from generator `g` on `dev`; with
+    `view`, drawn one row longer and returned from row 1."""
+    import torch
+    m = n + view
+    mat = torch.randint(0, 256, (m, w), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    lens = torch.randint(0, w + 1, (m,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[torch.randint(0, m, (m // 100,), generator=g, device=dev)] = -1
+    return (mat[1:], lens[1:]) if view else (mat, lens)
+
+
+def fnv_sweep_case(kernels, g, dev, bound_ms, case: str, n: int, w: int,
+                   p: int, view: bool) -> dict:
+    """One FNV_SWEEP case: fnv_hash_bytes bit-exact against its plain
+    version, then timed; its time, bound and share of the bound."""
+    import torch
+    mat, lens = fnv_inputs(g, n, w, dev, view)
+    want = kernels.fnv_hash_bytes_plain(mat, lens, p)
+    check(torch.equal(kernels.fnv_hash_bytes(mat, lens, p), want),
+          f"fnv_hash_bytes sweep {case}: kernel disagrees with its plain "
+          f"version")
+    ms = cuda_ms(lambda: kernels.fnv_hash_bytes(mat, lens, p),
+                 fnv_timing_calls(n))
+    bound = bound_ms(n * w + 8 * n)
+    log(f"kernel fnv_hash_bytes sweep {case} N={n} W={w} P={p}: ms={ms:.4f} "
+        f"bound_ms={bound:.4f} share={bound / ms:.3f} max_abs_err=0 "
+        f"(bit-exact)")
+    return {"case": case, "n": n, "w": w, "p": p, "ms": ms,
+            "bound_ms": bound}
+
+
 def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
     import torch
     from tez_tpu_torch.ops import kernels
@@ -593,11 +652,7 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
 
     # FNV over a byte matrix, N = 2^23, W = 16, 1% pad rows
     n, w = 1 << 23, 16
-    mat = torch.randint(0, 256, (n, w), generator=g, device=dev,
-                        dtype=torch.int32).to(torch.uint8)
-    lens = torch.randint(0, w + 1, (n,), generator=g, device=dev,
-                         dtype=torch.int32)
-    lens[torch.randint(0, n, (n // 100,), generator=g, device=dev)] = -1
+    mat, lens = fnv_inputs(g, n, w, dev)
     got = kernels.fnv_hash_bytes(mat, lens, NUM_PARTITIONS)
     want = kernels.fnv_hash_bytes_plain(mat, lens, NUM_PARTITIONS)
     rows["fnv_hash_bytes"] = record(
@@ -608,7 +663,13 @@ def kernel_phase(seed: int, bw_tb_s: float, tile_sweep: bool = False) -> dict:
         cuda_ms(lambda: kernels.fnv_hash_bytes_plain(mat, lens,
                                                      NUM_PARTITIONS), 3),
         n * w + 4 * n + 4 * n, shape=f"N={n} W={w}")
-    del mat
+    del mat, lens
+    t0 = time.perf_counter()
+    rows["fnv_hash_bytes"]["sweep"] = [
+        fnv_sweep_case(kernels, g, dev, bound_ms, *case)
+        for case in FNV_SWEEP]
+    log(f"kernel fnv_hash_bytes sweep: {len(FNV_SWEEP)} cases in "
+        f"{time.perf_counter() - t0:.3f} s")
 
     # FNV over 3 big-endian lanes, lengths 1..12, 1% pad rows
     lanes = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 3), generator=g,
@@ -5738,12 +5799,16 @@ def stream_phase(args, corpus: DagCorpus, device="cuda", **sizes) -> dict:
 # ---------------------------------------------------------------------------
 #: phase 20's sizes: tez_tpu's shapes (widths, 4 x 4 tasks, io.sort.mb 48 /
 #: 512, a 2M-word Zipf vocabulary at io.sort.mb 64, query skew 0.0 / 1.1,
-#: a 30% hot partition), scale cut to fit the script's limit (PERF.md §4)
+#: a 30% hot partition), scale cut to fit the script's limit (PERF.md §4);
+#: owc_mb: B's proxy over that prefix of phase 11's corpus, one of its
+#: marks
 BENCH_SIZES = dict(profile_rows=1 << 20, exchange_workers=8, sort_mb=256,
+                   owc_mb=MESH_SIZES["mesh_mb"],
                    sort_env={}, spill_mb=128, spill_vocab=SPILL_VOCAB,
                    spill_sort_mb=64, query_scale=None,
                    diff_threshold=0.20)
 TINY_BENCH = dict(profile_rows=1 << 12, exchange_workers=8, sort_mb=16,
+                  owc_mb=TINY_MESH["mesh_mb"],
                   sort_env={"TEZ_BENCH_SORT_IOSORT_MB": "1",
                             "TEZ_BENCH_SORT_MERGE_MB": "16"},
                   spill_mb=6, spill_vocab=60_000, spill_sort_mb=1,
@@ -5874,24 +5939,31 @@ def bench_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
         log(f"bench G: {line}")
     check(rc == 0, f"bench G: bench_diff exited {rc}")
 
-    # B: the OrderedWordCount proxy over phase 11's corpus, its counts the
-    # golden's; the sorter proxy ran in phase 4 over its records
+    # B: the OrderedWordCount proxy over the first owc_mb MiB of phase 11's
+    # corpus, its counts the golden's; the sorter proxy ran in phase 4 over
+    # its records
+    owc_path, owc_bytes, owc_golden = corpus.slice_file(
+        "owc_bench.txt", 0, sz["owc_mb"])
+
     def owc():
-        secs, counts = native.owc_proxy_counts(corpus.path, 4, 4)
-        drawn = np.flatnonzero(corpus.golden)
+        secs, counts = native.owc_proxy_counts(owc_path, 4, 4)
+        drawn = np.flatnonzero(owc_golden)
         want = dict(zip((w.decode() for w in word_bytes(
-            corpus.mat, corpus.lens, drawn)), corpus.golden[drawn].tolist()))
+            corpus.mat, corpus.lens, drawn)), owc_golden[drawn].tolist()))
         check(counts == want, f"bench B: owc_proxy_counts differs from "
                               f"phase 11's golden ({len(counts)} words "
                               f"against {len(want)})")
         return secs
     proxy_s = part("B", owc)
     wall_a = phase11.get("A", {}).get("wall")
-    log(f"bench B: owc proxy {proxy_s:.3f} s over {corpus.nbytes} bytes, "
-        f"equal to the golden; phase 11 A {wall_a if wall_a else 'n/a'} s; "
-        f"proxy wall / 11 A's wall "
-        f"{proxy_s / wall_a if wall_a else float('nan'):.3f}; sorter "
-        f"proxy (phase 4) {json.dumps(PROXY_RUNS.get('sorter'))}")
+    # seconds a byte, the proxy's over 11 A's (over the whole corpus)
+    ratio = proxy_s / owc_bytes / (wall_a / corpus.nbytes) if wall_a \
+        else float("nan")
+    log(f"bench B: owc proxy {proxy_s:.3f} s over {owc_bytes} bytes, "
+        f"equal to the golden; phase 11 A {wall_a if wall_a else 'n/a'} s "
+        f"over {corpus.nbytes} bytes; proxy s a byte / 11 A's s a byte "
+        f"{ratio:.3f}; sorter proxy (phase 4) "
+        f"{json.dumps(PROXY_RUNS.get('sorter'))}")
 
     # C: the four exchange legs on a mesh of logical workers of the device;
     # the coordinator routes on the host, so no kernel launch is required

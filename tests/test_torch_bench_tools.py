@@ -424,8 +424,9 @@ def test_bench_phase_on_the_host(tmp_path):
 
     import chip_smoke
     args = types.SimpleNamespace(seed=0)
-    corpus = chip_smoke.DagCorpus(str(tmp_path), args, corpus_mb=2,
-                                  vocab_size=20_000)
+    corpus = chip_smoke.DagCorpus(
+        str(tmp_path), args, marks_mb=(chip_smoke.TINY_BENCH["owc_mb"],),
+        corpus_mb=2, vocab_size=20_000)
     out = chip_smoke.bench_phase(args, corpus, {}, device="cpu",
                                  **chip_smoke.TINY_BENCH)
     assert sorted(out["legs"]) == list("ABCDEFG")

@@ -37,16 +37,28 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
 
 
-@pytest.mark.parametrize("w", [3, 4, 12, 16, 32])
-def test_fnv_bytes_kernel(cuda, w):
-    """W = 3 takes byte loads, 4 and 12 word loads, 16 and 32 uint4."""
-    rng = np.random.default_rng(w)
-    mat = rng.integers(0, 256, (5001, w)).astype(np.uint8)
-    lengths = rng.integers(-1, w + 3, 5001).astype(np.int32)
-    for p in (1, 7, 2 ** 31 - 1):
-        got = kernels.fnv_hash_bytes(_t(mat).to(cuda), _t(lengths).to(cuda), p)
-        assert torch.equal(got.cpu(), kernels.fnv_hash_bytes(
-            _t(mat), _t(lengths), p))
+@pytest.mark.parametrize("n", [1, 1023, 1025, 5001, (1 << 20) + 7])
+@pytest.mark.parametrize("w", [1, 3, 4, 8, 12, 16, 32, 64, 100])
+def test_fnv_bytes_kernel(cuda, w, n):
+    """Every flavour (W = 4, 8, 16, 32 and 64 templated, any other width
+    read at run time) against the plain version: one row, a tile and a
+    short tail, many tiles; lengths -1, 0, W and past W; P a power of two
+    or not; each base 16-byte aligned or not (a view one element in)."""
+    rng = np.random.default_rng(1000 * w + n % 1000)
+    mat = rng.integers(0, 256, (n, w)).astype(np.uint8)
+    lengths = rng.integers(-1, w + 3, n).astype(np.int32)
+    lengths[:4] = np.array([-1, 0, w, w + 5], dtype=np.int32)[:n]
+    h = kernels._fnv_rows(_t(mat), _t(lengths))
+    dm, dl = _t(mat).to(cuda), _t(lengths).to(cuda)
+    mbuf = torch.empty(n * w + 1, dtype=torch.uint8, device=cuda)
+    mbuf[1:] = dm.flatten()
+    lbuf = torch.empty(n + 1, dtype=torch.int32, device=cuda)
+    lbuf[1:] = dl
+    um, ul = mbuf[1:].view(n, w), lbuf[1:]
+    for p in (1, 2, 7, 8, 2 ** 31 - 1):
+        want = kernels._to_partitions(h, _t(lengths), p)
+        for km, kl in ((dm, dl), (um, dl), (dm, ul), (um, ul)):
+            assert torch.equal(kernels.fnv_hash_bytes(km, kl, p).cpu(), want)
 
 
 @pytest.mark.parametrize("num_lanes", [1, 3, 4])

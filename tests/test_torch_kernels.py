@@ -64,6 +64,33 @@ def test_fnv_bytes_pad_rows_and_lengths_past_width():
     assert (got[lengths < 0] == INT32_MAX).all()
 
 
+def _umulhi64(a: np.ndarray, b: int) -> np.ndarray:
+    """High 64 bits of the 128-bit products of uint64 `a` and b < 2^32."""
+    b = np.uint64(b)
+    lo, hi = a & np.uint64(0xFFFFFFFF), a >> np.uint64(32)
+    return (hi * b + ((lo * b) >> np.uint64(32))) >> np.uint64(32)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 7, 8, 7919, 2 ** 31 - 1])
+def test_fnv_bytes_modulo_magic_matches_remainder(p):
+    """The magic fnv_hash_bytes hands its kernel, through a numpy model of
+    the kernel's epilogue (M * h mod 2^64, then the high half of its
+    product with p; h & (p - 1) where M is 0), gives h % p for 10^5 seeded
+    32-bit hashes and the extremes."""
+    rng = np.random.default_rng(p)
+    h = np.concatenate([
+        rng.integers(0, 2 ** 32, 100_000, dtype=np.uint64),
+        np.array([0, 1, p - 1, p, p + 1, 2 ** 31, 2 ** 32 - 1],
+                 dtype=np.uint64)])
+    magic = kernels.fastmod_magic(p)
+    assert 0 <= magic < 2 ** 64
+    if magic == 0:
+        got = h & np.uint64(p - 1)
+    else:
+        got = _umulhi64(np.uint64(magic) * h, p)
+    np.testing.assert_array_equal(got, h % np.uint64(p))
+
+
 @pytest.mark.parametrize("num_lanes", [1, 3, 4])
 def test_fnv_lanes_plain_matches_xla_lane_hash(num_lanes):
     """Lanes hash == tez_tpu's _fnv_rows_from_lanes + partition epilogue,

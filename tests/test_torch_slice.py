@@ -216,7 +216,7 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 
 def test_merge_rank_turns_loads_each_checkout_apart(tmp_path):
-    """merge_rank_turns.py loads another checkout's package beside this
+    """kernel_turns.py loads another checkout's package beside this
     one: each kernels module builds and binds through its own tree, and
     the caller's modules are back in place afterwards.  Without a card the
     script itself exits non-zero before timing anything."""
@@ -227,7 +227,7 @@ def test_merge_rank_turns_loads_each_checkout_apart(tmp_path):
     code = textwrap.dedent(f"""
         import sys
         import numpy as np, torch
-        import chip_smoke, merge_rank_turns as mt
+        import chip_smoke, kernel_turns as mt
         import tez_tpu_torch.ops.kernels as mine
         trees = [mt.load_kernels({REPO!r}), mt.load_kernels({str(other)!r})]
         assert sys.modules["tez_tpu_torch.ops.kernels"] is mine
@@ -251,8 +251,43 @@ def test_merge_rank_turns_loads_each_checkout_apart(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
     if not torch.cuda.is_available():
-        out = subprocess.run([sys.executable, "merge_rank_turns.py",
-                              str(other)], cwd=REPO, capture_output=True,
-                             text=True, timeout=120)
+        out = subprocess.run([sys.executable, "kernel_turns.py",
+                              "merge_rank", str(other)], cwd=REPO,
+                             capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
-        assert "merge_rank_turns" not in out.stdout
+        assert "kernel_turns" not in out.stdout
+
+
+def test_fnv_sweep_inputs_and_turns_without_a_card():
+    """Phase 2's FNV sweep names the widths the kernel templates and one
+    it reads at run time, the modulo's three routes, a short last tile,
+    unaligned bases and one row; fnv_inputs draws lengths in -1..W and,
+    for a view, the rows from row 1 of a longer matrix; kernel_turns.py
+    names both kernels, imports neither JAX nor tez_tpu and, without a
+    card, exits non-zero before timing anything."""
+    cases = {c[0]: c[1:] for c in chip_smoke.FNV_SWEEP}
+    assert {w for _, w, _, _ in cases.values()} >= {4, 8, 12, 16, 32, 64}
+    assert {p for _, _, p, _ in cases.values()} >= {
+        chip_smoke.NUM_PARTITIONS, 8, 7, 2 ** 31 - 1}
+    assert cases["tail"][0] % 1024 and cases["N=1"][0] == 1
+    assert cases["view"][3] and cases["view"][1] % 16
+    g = torch.Generator().manual_seed(0)
+    mat, lens = chip_smoke.fnv_inputs(g, 5000, 12, "cpu", view=True)
+    assert mat.shape == (5000, 12) and mat.storage_offset() == 12
+    assert lens.shape == (5000,) and lens.storage_offset() == 1
+    assert mat.is_contiguous() and lens.is_contiguous()
+    assert int(lens.min()) == -1 and int(lens.max()) == 12
+    if torch.cuda.is_available():
+        return
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["tez_tpu"] = None
+        import kernel_turns
+        assert set(kernel_turns.KERNELS) == {"merge_rank", "fnv_hash_bytes"}
+        sys.exit(kernel_turns.main(["fnv_hash_bytes", "."]))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "kernel_turns" not in out.stdout

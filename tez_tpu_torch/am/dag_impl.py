@@ -189,6 +189,14 @@ class DAGImpl:
 
     def _finish(self) -> DAGState:
         if self.succeeded_vertices == len(self.vertices):
+            if self.state is DAGState.COMMITTING:
+                # vertices count themselves complete before the DAG reads
+                # their DAG_VERTEX_COMPLETED, so when the last two finish
+                # back to back both events see every vertex done: the
+                # commit the first one started decides (a second commit
+                # thread would race it for each part file's rename).
+                # tez_tpu commits twice here
+                return DAGState.COMMITTING
             return self._start_commit()
         self.finish_time = clock.wall_s()
         final = DAGState.FAILED if self.failed_vertices else DAGState.KILLED

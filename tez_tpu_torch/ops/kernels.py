@@ -61,7 +61,7 @@ MERGE_PATH_GROUP = 0
 _VP = ctypes.c_void_p
 _ARGTYPES = {
     "tez_fnv_hash_bytes": [_VP, _VP, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_uint, _VP, _VP],
+                           ctypes.c_uint, ctypes.c_ulonglong, _VP, _VP],
     "tez_fnv_hash_lanes": [_VP, _VP, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_uint, _VP, _VP],
     "tez_merge_rank_tile": [ctypes.c_int],
@@ -182,6 +182,15 @@ def _to_partitions(h: torch.Tensor, lengths: torch.Tensor,
         .to(torch.int32)
 
 
+def fastmod_magic(num_partitions: int) -> int:
+    """The modulo magic fnv_hash_bytes' kernel takes: 0 for a power of two
+    (the kernel masks with p - 1), else M = floor((2^64 - 1) / p) + 1, with
+    which h mod p = umulhi64(M * h mod 2^64, p) for every 32-bit h (Lemire,
+    Kaser & Kurz 2019)."""
+    p = num_partitions
+    return 0 if p & (p - 1) == 0 else (2 ** 64 - 1) // p + 1
+
+
 def fnv_hash_bytes(key_mat: torch.Tensor, lengths: torch.Tensor,
                    num_partitions: int) -> torch.Tensor:
     """Partition of each row of a uint8[N, W] key matrix by FNV-1a over its
@@ -200,7 +209,8 @@ def fnv_hash_bytes(key_mat: torch.Tensor, lengths: torch.Tensor,
     if n:
         _launch("fnv_hash_bytes", "fnv_hash", "tez_fnv_hash_bytes",
                 key_mat.data_ptr(), lengths.data_ptr(), n, w,
-                num_partitions, out.data_ptr())
+                num_partitions, fastmod_magic(num_partitions),
+                out.data_ptr())
     return out
 
 

@@ -42,7 +42,8 @@ Phases, each checked, none allowed to fail:
 4. reduce side: merge_sorted_runs over phase 3b's runs, checked byte for
    byte against a numpy golden (FNV partition + stable lexsort);
 5. device_shuffle_sort over one producer's records, against the same
-   golden; 5b. the same records submitted in two spans to
+   golden, and the PipelinedSorter proxy (phase 20 B reports it) over the
+   same records in their 2 spans, its output the golden's; 5b. the same records submitted in two spans to
    DeviceSpanScheduler, coalesced into one dispatch, equal to phase 5;
 6. the combiner leg of OrderedWordCount: ragged 1-16 byte Zipf words with
    value 1, the same producers with sum_long_combiner on the async plane
@@ -128,9 +129,9 @@ Phases, each checked, none allowed to fail:
 13. the unordered edge: examples/wordcount.py through the port's
    TezClient over prefixes of phase 11's corpus (whole 1M-word chunks,
    words as bytes keys, pickled longs as values): A, the example's
-   defaults (a 100 MB output buffer, final merge on) over the first 16
+   defaults (a 100 MB output buffer, final merge on) over the first 8
    MiB; B, final merge off and an 8 MB buffer, so each tokenizer ships
-   its spills as events of their own, over the first 16 MiB; C,
+   its spills as events of their own, over the first 8 MiB; C,
    examples/simple_session.py over three 8 MiB slices in one pre-warmed
    session that holds its runners (the idle release at 20 min); every
    part file equal to a Counter golden restricted to its
@@ -262,10 +263,10 @@ Phases, each checked, none allowed to fail:
    FNV version against the kernel through hash_partition and the host
    encode plus upload against encode_keys_device, each pair equal first;
    B, owc_proxy_counts (the C++ OrderedWordCount proxy, 4 x 4) over the
-   first 256 MiB of phase 11's corpus (15(b)'s slice; cut from all 512
-   MiB), equal to its golden, its seconds a byte beside 11 A's (phase 4 ran
-   the PipelinedSorter proxy over its records in 2 x producers spans: its
-   partition counts, key order and values the merged run's); C,
+   first 128 MiB of phase 11's corpus (cut from all 512 MiB, then 256),
+   equal to its golden, its seconds a byte beside 11 A's (phase 5 ran
+   the PipelinedSorter proxy over its producer's records in 2 spans: its
+   partition counts, key order and values the golden's); C,
    bench_exchange's four legs on a mesh of 8 logical workers of the card,
    bit-identical; D, bench_sort (4 x 4 tasks, io.sort.mb 48 / 512) push
    against pull over 256 MB, both spilled, push pushed, the outputs
@@ -275,14 +276,47 @@ Phases, each checked, none allowed to fail:
    sorter's device floor at one record (FLOOR_CONF), the replan journaled
    and rendered by doctor; G, bench_diff over the card legs of A (the
    kernel hash and the device encode, as Mrows/s records) and of a
-   second run of A, exit code 0.  A, D, E, F and G's second run of A
+   second run of A, exit code 0 (A and G run 3 rounds each, alternately,
+   and each keeps a leg's fastest round).  A, D, E, F and G's second run of A
    each require their kernels launched; B's proxies run on the host, and
    C's exchange routes its rows on the host (the coordinator's
    fnv32_partition_native) and moves them with copies, so C launches no
    hand-written kernel on one card.
+21. the MapReduce layer, the canned shapes, the AM web UI and the offline
+   tools, each AM on the card with tez.am.web.enabled and a secret in
+   its conf: A, TeraSort as an MR job (io/mapreduce.py simple_mr_dag,
+   identity map and reduce of examples/mr_jobs.py, 4 x 4) over 671,088
+   fixed-width records of a 10-byte key and a 90-byte value (64 MiB,
+   Hadoop's TeraGen record, uniform random bytes from --seed), its parts
+   held against a golden of their own (each part in key order, each
+   record in the part its key's host FNV-1a mod 4 names, the records'
+   multiset the input's); while it runs (reducer 0 held 2 s by a task.run
+   rule) every endpoint of am/web.py answers 200 with a payload that
+   parses, and so does tools/top.py --once; after it /status shows
+   SUCCEEDED with 4 + 4 tasks and /swimlane.svg is tools/swimlane.py's
+   render_svg over the AM's journal, /conf redacts the secret; then the
+   same job through mr_job_to_dag from a Hadoop-style job conf
+   (BytesWritable, examples/mr_jobs.py TeraInputFormat), its parts byte
+   for byte the first run's; B, WordCount (Python map and reduce) over
+   the first 8 MiB of phase 11's corpus, each part the words of its FNV
+   partition with their golden counts, and a three-stage mr_chain_dag
+   over the same input (word totals, first letters, letter totals) equal
+   to its golden; each run of A and B launching fnv_hash_lanes and
+   merge_path_pair; C, every builder of models/shapes.py in one session
+   (the shapes with an empty payload and multi_attempt_dag SUCCEEDED,
+   multi_attempt_dag's 3 tasks retried, the failing payload on
+   simple_dag and the two- and three-level DAGs FAILED), and TeraSort
+   over 2^16 records with FlakyFetchOrderedInput on its edge (task 0's
+   first fetch reported failed): a producer reruns and the parts equal a
+   clean run's; D, over the journals of A-C: tools/analyzers.py (the CLI
+   and --cache-dir), tools/history_cache.py, tools/counter_diff.py
+   between A's two runs, tools/log_split.py over C's task log (each
+   failure under its attempt), and tools/journal_fsck.py clean over the
+   recovery journals of phase 21 and of phases 17 A, 17 B (the crashed
+   attempt and its successor) and 19.
 
 Kernel launch counts and the host library's call counts are zeroed
-before each path of phases 3-20 and read after it (phase 12's, 16 C's
+before each path of phases 3-21 and read after it (phase 12's, 16 C's
 and 17 A's are summed from their runners' stats files; phase 15(a)'s
 checks are left out): each TPU kernel's
 counterpart on the path must have been launched, and the general-query
@@ -291,7 +325,7 @@ precombine of phase 6 must call hash_sum_i64, every host merge pass of
 phases 8-10 tz_merge_emit or tz_merge_runs, phase 11's combining leg the
 word-count aggregator (tz_wc_feed) and its other leg tz_split_ws, and
 the same of phase 12's legs in their runners.  The kernels' JSON line
-reports their launches over phases 3-6 and 8-20; the
+reports their launches over phases 3-6 and 8-21, and by phase; the
 line before it, {"native": ...}, the library's calls by phase and phase
 2b's times.  The last line is {"ok": true, "device": {...}}.  Without a card the script exits non-zero before
 printing any result.  --tile-sweep also times the merge-path kernel at
@@ -301,10 +335,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import importlib
 import io
 import json
+import logging
 import math
 import os
 import shutil
@@ -1366,14 +1402,6 @@ def slice_phases(args, device="cuda") -> dict:
     check(np.array_equal(merged.row_index, row_index), "reduce: row_index")
     log(f"reduce: {len(ids)} records byte-identical to the golden "
         f"(golden_s={time.perf_counter() - t0:.3f})")
-    # phase 20 B's PipelinedSorter proxy over these records, one producer
-    # span a map span (cheaper here than a second map side there)
-    PROXY_RUNS["sorter"] = sorter_proxy_check(
-        vocab[ids], vals, 2 * args.producers, merged)
-    log(f"reduce: the PipelinedSorter proxy over the same records in "
-        f"{2 * args.producers} spans took "
-        f"{PROXY_RUNS['sorter']['proxy_s']:.3f} s; its counts, keys and "
-        f"values are the merged run's")
     del merged, runs, order, ids, vals
 
     # -- phase 5: fused device pipeline over one producer's records ----------
@@ -1410,6 +1438,15 @@ def slice_phases(args, device="cuda") -> dict:
           "pipeline: partition counts")
     log(f"fused_pipeline: {n} records identical to the golden")
     del sp, out_lanes, out_vals, perm, counts, lanes, hmat
+    # phase 20 B's PipelinedSorter proxy over these records, one producer
+    # span a map span (cheaper here than a map side there; one producer's
+    # records, not phase 4's two: PERF.md section 4)
+    PROXY_RUNS["sorter"] = sorter_proxy_check(keys, vals, len(span_ids),
+                                              order, golden[4])
+    log(f"fused_pipeline: the PipelinedSorter proxy over the same records "
+        f"in {len(span_ids)} spans took "
+        f"{PROXY_RUNS['sorter']['proxy_s']:.3f} s; its counts, keys and "
+        f"values are the golden's")
 
     # -- phase 5b: the same records through DeviceSpanScheduler --------------
     # submit_ragged in the producer's two spans, coalesced into one
@@ -3345,6 +3382,7 @@ class SessionRun:
 
     def __init__(self):
         self.app_id = ""
+        self.warm_events: list = []
         self.runs: list = []
         self.store_counters: list = []
         self.peaks: list = []
@@ -3355,13 +3393,16 @@ class SessionRun:
 
 
 def run_session(api, descs: list, conf: dict, timeout: float = 3600,
-                between=None) -> SessionRun:
+                between=None, warm_up=None) -> SessionRun:
     """descs through ONE of api's TezClients (conf must name the staging
     directory), one DAG after another (a session: the AM, its runners and
-    the process's buffer store live across them); between() runs after
-    each DAG.  Each DagRun holds the AM's history events since the one
-    before it (the first from the AM's start).  When conf enables the
-    store, its tiers are polled while each DAG runs."""
+    the process's buffer store live across them); warm_up(client) runs
+    before the first DAG, between() after each DAG.  Each DagRun holds the
+    AM's history events since the one before it (the first from the AM's
+    start, or from the end of warm_up: the events before are the
+    session's warm_events).
+    When conf enables the store, its tiers are polled while each DAG
+    runs."""
     import importlib
     store_mod = importlib.import_module(f"{api.root}.store")
     polled = str(conf.get("tez.runtime.store.enabled", "")).lower() in (
@@ -3372,7 +3413,10 @@ def run_session(api, descs: list, conf: dict, timeout: float = 3600,
     try:
         am = client.framework_client.am
         out.app_id = am.app_id
-        n0 = 0
+        if warm_up is not None:
+            warm_up(client)
+            out.warm_events = list(am.logging_service.events)
+        n0 = len(out.warm_events)
         for desc in descs:
             dag = build_dag(api, desc)
             with StorePeaks(api.root, enabled=polled) as peaks:
@@ -3397,13 +3441,16 @@ def run_session(api, descs: list, conf: dict, timeout: float = 3600,
     return out
 
 
-def run_dag(api, desc: dict, conf: dict, timeout: float = 3600) -> DagRun:
+def run_dag(api, desc: dict, conf: dict, timeout: float = 3600,
+            warm_up=None) -> DagRun:
     """desc through api's TezClient and AM (conf must name the staging
-    directory): the DAG is built, submitted and waited for; the history
-    is the AM's in-memory logging service, the journal the recovery
-    journal's lines."""
-    sess = run_session(api, [desc], conf, timeout)
+    directory), after warm_up(client) when given: the DAG is built,
+    submitted and waited for; the history is the AM's in-memory logging
+    service (warm_up's events apart, as run.warm_events), the journal the
+    recovery journal's lines."""
+    sess = run_session(api, [desc], conf, timeout, warm_up=warm_up)
     (run,) = sess.runs
+    run.warm_events = sess.warm_events
     path = os.path.join(conf["tez.staging-dir"], sess.app_id, "recovery",
                         "1", "journal.jsonl")
     if os.path.exists(path):
@@ -3676,6 +3723,28 @@ def runner_reports(stats_dir: str) -> list:
             for f in sorted(os.listdir(stats_dir)) if f.endswith(".json")]
 
 
+def warm_runners(label: str, client, parties: int, barrier_dir: str) -> None:
+    """Bring a session's runner processes up before its first DAG:
+    pre-warm, then a DAG of `parties` barrier tasks (PodBarrierProcessor),
+    which ends only once that many runners each hold one of its tasks;
+    after it every runner is idle in get_task."""
+    from tez_tpu_torch.common.payload import ProcessorDescriptor
+    from tez_tpu_torch.dag.dag import DAG, Vertex
+    os.makedirs(barrier_dir)
+    client.pre_warm()
+    warm = DAG.create("runner-warm-up").add_vertex(Vertex.create(
+        "barrier", ProcessorDescriptor.create(
+            "chip_smoke:PodBarrierProcessor",
+            payload={"dir": barrier_dir, "parties": parties,
+                     "timeout_s": 600}), parties))
+    state = client.submit_dag(warm).wait_for_completion(timeout=900)\
+        .state.name
+    check(state == "SUCCEEDED", f"{label}: warm-up DAG {state}")
+    check(len(os.listdir(barrier_dir)) == parties,
+          f"{label}: {len(os.listdir(barrier_dir))} runners took the "
+          f"warm-up's {parties} tasks")
+
+
 def remote_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
                  **sizes) -> dict:
     """Phase 12's legs over phase 11's corpus; phase11 holds its legs
@@ -3706,8 +3775,18 @@ def remote_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
             "tez.am.runner.env": env})
         desc = wordcount_description([corpus.path], out_dir, **DAG_SHAPE,
                                      **shape)
-        run = run_dag(api, desc, conf)
+        # every runner up and asking for work before the DAG: launched at
+        # the DAG's submit instead, the first runner up could take every
+        # task of a small DAG before the others started, and no fetch
+        # would cross processes
+        run = run_dag(api, desc, conf, warm_up=lambda client: warm_runners(
+            label, client, REMOTE_RUNNERS,
+            os.path.join(root, f"barrier_{leg}")))
         check(run.state == "SUCCEEDED", f"{label}: state {run.state}")
+        placed = {ev.container_id for ev in run.events
+                  if ev.event_type.name == "TASK_ATTEMPT_STARTED"}
+        check(len(placed) >= 2, f"{label}: the DAG's attempts ran in "
+                                f"{len(placed)} runner process")
         part = check_wordcount(label, out_dir, corpus.mat, corpus.lens,
                                corpus.golden)
         check(part == phase11[leg]["part"],
@@ -3737,7 +3816,8 @@ def remote_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
                   f"({r['device_name']})")
             check(r["server"] == REMOTE_SERVERS[leg],
                   f"{label}: runner {r['pid']} served through {r['server']}")
-        launched = {ev.container_id: ev.timestamp for ev in run.events
+        launched = {ev.container_id: ev.timestamp
+                    for ev in run.warm_events + run.events
                     if ev.event_type.name == "CONTAINER_LAUNCHED"}
         startup = [(round(r["first_get_task_s"] - launched[r["container_id"]],
                           3),
@@ -3783,10 +3863,10 @@ def remote_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
 #: phase 13's legs over prefixes of phase 11's corpus (MiB): A the
 #: example's defaults over the first a_mb, B per-spill events (final merge
 #: off, a b_buffer_mb output buffer) over the first b_mb, C three c_mb
-#: slices in one pre-warmed session (A and B cut from 64 and 32 MiB to
-#: keep the script within its time limit: ~6 us a word of per-record
-#: Python, and B still ships several spills a tokenizer)
-UNORDERED_SIZES = dict(a_mb=16, b_mb=16, c_mb=8, b_buffer_mb=8)
+#: slices in one pre-warmed session (A and B cut from 64 and 32 MiB, then
+#: from 16, to keep the script within its time limit: ~6 us a word of
+#: per-record Python, and B still ships several spills a tokenizer)
+UNORDERED_SIZES = dict(a_mb=8, b_mb=8, c_mb=8, b_buffer_mb=8)
 TINY_UNORDERED = dict(a_mb=0.5, b_mb=1, c_mb=0.25, b_buffer_mb=1,
                       corpus_mb=2, vocab_size=20_000, chunk_lines=4)
 #: WordCount's summation parallelism (the example's default)
@@ -5803,7 +5883,7 @@ def stream_phase(args, corpus: DagCorpus, device="cuda", **sizes) -> dict:
 #: owc_mb: B's proxy over that prefix of phase 11's corpus, one of its
 #: marks
 BENCH_SIZES = dict(profile_rows=1 << 20, exchange_workers=8, sort_mb=256,
-                   owc_mb=MESH_SIZES["mesh_mb"],
+                   owc_mb=128,
                    sort_env={}, spill_mb=128, spill_vocab=SPILL_VOCAB,
                    spill_sort_mb=64, query_scale=None,
                    diff_threshold=0.20)
@@ -5816,24 +5896,24 @@ TINY_BENCH = dict(profile_rows=1 << 12, exchange_workers=8, sort_mb=16,
                   # a rehearsal's millisecond timings on shared CPUs: G
                   # checks the path there, the card run checks the times
                   diff_threshold=0.9)
-#: phase 4's run of the PipelinedSorter proxy (phase 20 B reports it)
+#: phase 5's run of the PipelinedSorter proxy (phase 20 B reports it)
 PROXY_RUNS: dict = {}
 
 
-def sorter_proxy_check(keys, vals, spans: int, merged) -> dict:
+def sorter_proxy_check(keys, vals, spans: int, order, counts) -> dict:
     """bench.py's byte identity (bench.py:808-820): the PipelinedSorter /
     TezMerger proxy over the records (keys uint8[n, w], vals uint8[n, v])
-    in `spans` producer spans, its partition counts, key order and values
-    those of the port's merged run."""
+    in `spans` producer spans, its partition counts `counts` and its
+    records those of the sorted run (`order`, partition-major)."""
     from tez_tpu_torch.ops import native
     secs, pk, pv, pc = native.pipelined_sorter_proxy(keys, vals, spans,
                                                      NUM_PARTITIONS)
-    check(np.array_equal(pc, np.diff(merged.row_index)),
-          "sorter proxy: partition counts diverge from the port's")
-    check(np.array_equal(pk.reshape(-1), merged.batch.key_bytes),
-          "sorter proxy: key order diverges from the port's")
-    check(np.array_equal(pv.reshape(-1), merged.batch.val_bytes),
-          "sorter proxy: values diverge from the port's")
+    check(np.array_equal(pc, counts),
+          "sorter proxy: partition counts diverge from the golden's")
+    check(np.array_equal(pk, keys[order]),
+          "sorter proxy: key order diverges from the golden's")
+    check(np.array_equal(pv, vals[order]),
+          "sorter proxy: values diverge from the golden's")
     return {"records": int(keys.shape[0]), "spans": spans,
             "proxy_s": secs}
 
@@ -5847,6 +5927,10 @@ def bench_records(label: str, recs: list) -> None:
 #: compares two means of host-paced legs, which 5 or 20 reps leave noisy
 #: (PERF.md §7)
 PROFILE_REPS = 50
+#: rounds of A and of G, run alternately; each side keeps each card leg's
+#: fastest round, since one round's mean of a card leg fell to 0.73x of
+#: the run before it on the card's shared host (PERF.md §7)
+PROFILE_ROUNDS = 3
 
 
 def profile_records(rec: dict) -> list:
@@ -5861,6 +5945,14 @@ def profile_records(rec: dict) -> list:
             for key, what in (("hash_kernel_s", "FNV partition, kernel"),
                               ("encode_device_s", "key encode, device"))
             if key in rec]
+
+
+def fastest_rounds(runs: list) -> dict:
+    """profile_kernels runs of one side as one run: its card legs each
+    at their fastest round, the rest as the first round's."""
+    return dict(runs[0], **{key: min(r[key] for r in runs)
+                            for key in ("hash_kernel_s", "encode_device_s")
+                            if key in runs[0]})
 
 
 @contextlib.contextmanager
@@ -5881,7 +5973,7 @@ def scoped_env(**kv):
 def bench_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
                 **sizes) -> dict:
     """Phase 20 (module docstring): A profile_kernels, B the OrderedWordCount
-    proxy over phase 11's corpus (and phase 4's PipelinedSorter proxy), C
+    proxy over phase 11's corpus (and phase 5's PipelinedSorter proxy), C
     bench_exchange, D bench_sort, E spill_bench.run, F bench_query with the
     replan and doctor, G bench_diff over two runs of A.  Returns
     {"launches": ..., "legs": {part: wall s}}."""
@@ -5900,16 +5992,18 @@ def bench_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
     legs, parts = {}, {}
 
     def part(name, run, *kernels):
-        """One part: its launches zeroed before and read after, each of
-        `kernels` required above zero on the card."""
+        """One part (or one more round of it): its launches zeroed before
+        and read after, each of `kernels` required above zero on the card."""
         t0 = time.perf_counter()
         with Launches(f"bench {name}", totals) as ln:
             out = run()
             sync(device)
-        legs[name] = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        legs[name] = legs.get(name, 0.0) + wall
         ln.require(device, *kernels)
-        parts[name] = dict(ln.counts)
-        log(f"bench {name}: wall_s={legs[name]:.3f}")
+        parts[name] = dict(collections.Counter(parts.get(name, {})) +
+                           collections.Counter(ln.counts))
+        log(f"bench {name}: wall_s={wall:.3f}")
         return out
 
     # A: the plain FNV version against the kernel through hash_partition,
@@ -5917,12 +6011,15 @@ def bench_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
     def profile():
         return profile_kernels.profile(sz["profile_rows"], device=device,
                                        reps=PROFILE_REPS)
-    runs_a = [part("A", profile, "fnv_hash_bytes")]
-    log(f"bench A: {json.dumps(runs_a[0])}")
-    # G: bench_diff between A's records and a second run of A, back to
-    # back (a later run would meet the host's writeback of D and E)
-    runs_a.append(part("G", profile, "fnv_hash_bytes"))
-    log(f"bench G: {json.dumps(runs_a[1])}")
+    # G: bench_diff between A's records and a second run of A, the rounds
+    # of the two alternating, back to back (a later run would meet the
+    # host's writeback of D and E)
+    rounds: dict = {"A": [], "G": []}
+    for _ in range(PROFILE_ROUNDS):
+        for name in rounds:
+            rounds[name].append(part(name, profile, "fnv_hash_bytes"))
+            log(f"bench {name}: {json.dumps(rounds[name][-1])}")
+    runs_a = [fastest_rounds(rounds[name]) for name in rounds]
     paths = []
     for i, run in enumerate(runs_a):
         recs = profile_records(run)
@@ -5940,7 +6037,7 @@ def bench_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
     check(rc == 0, f"bench G: bench_diff exited {rc}")
 
     # B: the OrderedWordCount proxy over the first owc_mb MiB of phase 11's
-    # corpus, its counts the golden's; the sorter proxy ran in phase 4 over
+    # corpus, its counts the golden's; the sorter proxy ran in phase 5 over
     # its records
     owc_path, owc_bytes, owc_golden = corpus.slice_file(
         "owc_bench.txt", 0, sz["owc_mb"])
@@ -5962,7 +6059,7 @@ def bench_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
     log(f"bench B: owc proxy {proxy_s:.3f} s over {owc_bytes} bytes, "
         f"equal to the golden; phase 11 A {wall_a if wall_a else 'n/a'} s "
         f"over {corpus.nbytes} bytes; proxy s a byte / 11 A's s a byte "
-        f"{ratio:.3f}; sorter proxy (phase 4) "
+        f"{ratio:.3f}; sorter proxy (phase 5) "
         f"{json.dumps(PROXY_RUNS.get('sorter'))}")
 
     # C: the four exchange legs on a mesh of logical workers of the device;
@@ -6021,6 +6118,618 @@ def bench_phase(args, corpus: DagCorpus, phase11: dict, device="cuda",
     return {"launches": dict(totals), "legs": legs}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the MapReduce layer, the canned shapes, the web UI and the tools
+# ---------------------------------------------------------------------------
+#: phase 21's sizes: A TeraSort over tera_records records of a 10-byte key
+#: and a 90-byte value (64 MiB, Hadoop's TeraGen / TeraSort record); B
+#: WordCount and a three-stage chain over the first wc_mb MiB of phase 11's
+#: corpus; C the flaky-fetch edge over flaky_records TeraSort records; a
+#: task.run delay rule holds leg A's first reducer scrape_hold_ms so that
+#: the web UI's scrape falls inside the DAG's run
+MR_SIZES = dict(tera_records=671_088, wc_mb=8, flaky_records=1 << 16,
+                scrape_hold_ms=2_000)
+TINY_MR = dict(tera_records=1 << 12, wc_mb=0.25, flaky_records=1 << 10,
+               scrape_hold_ms=3_000, corpus_mb=1, vocab_size=20_000,
+               chunk_lines=4)
+#: mappers and reducers of legs A-C
+MR_TASKS = 4
+MR_JOBS = "tez_tpu_torch.examples.mr_jobs:"
+TERA_KEY, TERA_RECORD = 10, 100
+#: the AM web UI's endpoints (tez_tpu_torch/am/web.py's docstring, and the
+#: three it serves besides); {attempt} is an attempt id of the map vertex
+WEB_ENDPOINTS = ("", "status", "dags", "queue", "graph", "tasks?vertex=map",
+                 "attempt?id={attempt}", "counters", "counters?vertex=map",
+                 "conf", "history", "analyzers", "swimlane.svg", "nodes",
+                 "trace", "slo", "metrics", "metrics.json?window=30",
+                 "doctor/live?window=30")
+#: a conf value the web UI's /conf must redact
+WEB_SECRET = "hunter2"
+
+
+def tera_parts(out_dir: str) -> list:
+    """A TeraSort job's part files as uint8[n, 102] rows (key, tab, value,
+    newline), in part order."""
+    out = []
+    for name in sorted(f for f in os.listdir(out_dir)
+                       if f.startswith("part-")):
+        data = np.fromfile(os.path.join(out_dir, name), np.uint8)
+        check(data.size % (TERA_RECORD + 2) == 0,
+              f"{name}: {data.size} bytes is not whole records")
+        out.append(data.reshape(-1, TERA_RECORD + 2))
+    return out
+
+
+def record_digest(recs: np.ndarray) -> str:
+    """A digest of a record multiset: the rows sorted bytewise."""
+    import hashlib
+    rows = np.ascontiguousarray(recs).view(f"S{recs.shape[1]}").ravel()
+    return hashlib.sha256(np.sort(rows).tobytes()).hexdigest()
+
+
+def check_terasort(label: str, out_dir: str, recs: np.ndarray,
+                   reducers: int, digest: str = "") -> bytes:
+    """A TeraSort job's output against a golden independent of the port's
+    DAG: _SUCCESS written, `reducers` parts, each in key order and holding
+    exactly the records whose key's FNV-1a (the port's host hash) mod
+    `reducers` names it, and the records' multiset the input's (`digest`,
+    record_digest(recs), when the caller has it).  Returns the part
+    files' bytes."""
+    from tez_tpu_torch.ops.host_sort import fnv_rows_host
+    check(os.path.exists(os.path.join(out_dir, "_SUCCESS")),
+          f"{label}: no _SUCCESS in {out_dir}")
+    parts = tera_parts(out_dir)
+    check(len(parts) == reducers, f"{label}: {len(parts)} part files")
+    for p, rows in enumerate(parts):
+        check(bool(np.all(rows[:, TERA_KEY] == ord("\t"))
+                   and np.all(rows[:, -1] == ord("\n"))),
+              f"{label}: part {p} is not key TAB value NEWLINE records")
+        keys = np.ascontiguousarray(rows[:, :TERA_KEY])
+        flat = keys.view(f"S{TERA_KEY}").ravel()
+        check(bool(np.all(flat[:-1] <= flat[1:])),
+              f"{label}: part {p} is not in key order")
+        part_of = fnv_rows_host(keys, np.full(len(keys), TERA_KEY,
+                                              np.int32)) % reducers
+        check(bool(np.all(part_of == p)),
+              f"{label}: part {p} holds {int(np.sum(part_of != p))} "
+              f"records of another partition")
+    got = np.concatenate([np.concatenate(
+        [rows[:, :TERA_KEY], rows[:, TERA_KEY + 1:-1]], axis=1)
+        for rows in parts])
+    check(len(got) == len(recs)
+          and record_digest(got) == (digest or record_digest(recs)),
+          f"{label}: {len(got)} records out, {len(recs)} in, or another "
+          f"multiset")
+    return part_bytes(out_dir)
+
+
+def terasort_job_conf(path: str, out_dir: str, maps: int,
+                      reduces: int) -> dict:
+    """TeraSort as a Hadoop-style job conf (mapreduce.job.* keys,
+    BytesWritable keys and values) for io.mapreduce.mr_job_to_dag."""
+    writable = "org.apache.hadoop.io.BytesWritable"
+    return {"mapreduce.job.name": "terasort-conf",
+            "mapreduce.job.map.class": MR_JOBS + "identity_map",
+            "mapreduce.job.reduce.class": MR_JOBS + "identity_reduce",
+            "mapreduce.job.maps": maps, "mapreduce.job.reduces": reduces,
+            "mapreduce.input.fileinputformat.inputdir": path,
+            "mapreduce.output.fileoutputformat.outputdir": out_dir,
+            "mapreduce.job.inputformat.class": MR_JOBS + "TeraInputFormat",
+            "mapreduce.map.output.key.class": writable,
+            "mapreduce.map.output.value.class": writable,
+            "mapreduce.job.output.key.class": writable,
+            "mapreduce.job.output.value.class": writable}
+
+
+def terasort_dag(path: str, out_dir: str, tasks: int = MR_TASKS,
+                 name: str = "terasort"):
+    from tez_tpu_torch.io.mapreduce import simple_mr_dag
+    return simple_mr_dag(
+        name, [path], out_dir, map_fn=MR_JOBS + "identity_map",
+        reduce_fn=MR_JOBS + "identity_reduce", num_mappers=tasks,
+        num_reducers=tasks, input_format="fixed",
+        format_params={"key_bytes": TERA_KEY,
+                       "value_bytes": TERA_RECORD - TERA_KEY})
+
+
+def with_flaky_fetch(dag, tasks, root: str = "tez_tpu_torch") -> None:
+    """Swap each edge's input of root's DAG for root's
+    FlakyFetchOrderedInput: attempt 0 of each consumer task in `tasks`
+    reports its first fetch failed."""
+    import dataclasses
+    descriptor = importlib.import_module(f"{root}.common.payload")\
+        .InputDescriptor
+    for edge in dag.edges:
+        old = edge.edge_property.edge_destination
+        edge.edge_property = dataclasses.replace(
+            edge.edge_property, edge_destination=descriptor.create(
+                f"{root}.library.test_components:FlakyFetchOrderedInput",
+                payload=dict(old.payload.load() or {},
+                             failing_fetch_task_indices=list(tasks))))
+
+
+def mr_conf(root: str, run: str, **extra) -> dict:
+    """A phase-21 AM's conf: its own staging directory, 4 runner threads,
+    the web UI on, a secret the UI must redact."""
+    return dict({"tez.staging-dir": os.path.join(root, f"staging_{run}"),
+                 "tez.am.local.num-containers": MR_TASKS,
+                 "tez.am.web.enabled": True,
+                 "tez.am.metrics.sample-period-ms": 25.0,
+                 "tez.fake.access.token": WEB_SECRET}, **extra)
+
+
+def web_get(url: str) -> tuple:
+    """(HTTP status, body) of one GET."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def parse_web(path: str, body: bytes):
+    """An endpoint's payload parsed by its type (raises if it does not
+    parse): the page, the SVG, Prometheus text, else JSON."""
+    from tez_tpu_torch.obs.exposition import parse_exposition
+    if path == "":
+        if b"<html" not in body:
+            raise ValueError("no <html")
+        return body
+    if path == "swimlane.svg":
+        if not (body.startswith(b"<svg") and body.endswith(b"</svg>")):
+            raise ValueError("not an svg")
+        return body
+    if path == "metrics":
+        return parse_exposition(body.decode())
+    return json.loads(body)
+
+
+def scrape_web(label: str, am, url: str) -> None:
+    """Every WEB_ENDPOINTS path and top.main([url, "--once"]), in passes
+    while am's DAG runs: each must answer 200 with a payload that parses,
+    at least once between two reads of the DAG's state that both say
+    RUNNING; /conf redacts the secret."""
+    from tez_tpu_torch.tools import top
+
+    def running() -> bool:
+        dag = am.current_dag
+        return dag is not None and dag.state.name == "RUNNING"
+
+    deadline = time.time() + 600
+    while not running() and time.time() < deadline:
+        dag = am.current_dag
+        if dag is not None and dag.state.name in ("SUCCEEDED", "FAILED",
+                                                  "KILLED", "ERROR"):
+            break
+        time.sleep(0.005)
+    got: dict = {}
+    attempt = None
+    passes = 0
+    while running() and len(got) < len(WEB_ENDPOINTS) + 1:
+        passes += 1
+        for path in WEB_ENDPOINTS + ("top",):
+            if path in got or (path.startswith("attempt") and not attempt):
+                continue
+            before = running()
+            if path == "top":
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = top.main([url, "--once"])
+                check(rc == 0 and "graft top" in buf.getvalue(),
+                      f"{label}: top --once returned {rc}")
+                payload = buf.getvalue()
+            else:
+                code, body = web_get(url + path.format(attempt=attempt))
+                check(code == 200, f"{label}: GET /{path} answered {code}: "
+                                   f"{body[:200]!r}")
+                payload = parse_web(path.split("?")[0], body)
+            if path.startswith("tasks") and payload and \
+                    payload[0]["attempts"]:
+                attempt = payload[0]["attempts"][0]["id"]
+            if before and running():
+                got[path] = payload
+    missing = [p for p in WEB_ENDPOINTS + ("top",) if p not in got]
+    check(not missing, f"{label}: the DAG ended before {missing} answered "
+                       f"inside its run ({passes} passes)")
+    conf = got["conf"]
+    check(conf.get("tez.fake.access.token") == "<redacted>"
+          and WEB_SECRET not in json.dumps(conf, default=str),
+          f"{label}: /conf shows a secret")
+    log(f"{label}: {len(got)} web endpoints and top answered 200 and parsed "
+        f"while the DAG ran ({passes} passes)")
+
+
+def journal_path(staging: str, app_id: str, attempt: int = 1) -> str:
+    return os.path.join(staging, app_id, "recovery", str(attempt),
+                        "journal.jsonl")
+
+
+class MrRun:
+    """One MR job through the port's TezClient on its own AM: final state,
+    wall s and counters (the DAG's, and the AM's DAGCounter group)."""
+
+    def __init__(self, state, wall, counters):
+        self.state, self.wall, self.counters = state, wall, counters
+
+
+def run_mr(label: str, dag, conf: dict, device, totals, hist_dir: str,
+           want=("fnv_hash_lanes", "merge_path_pair"), web=False,
+           hold_ms: int = 0) -> MrRun:
+    """dag through the port's TezClient (conf's AM, the web UI on) on
+    `device`, its launches read around it and required on the card; with
+    `web`, the UI is scraped while the DAG runs (reducer 0 held hold_ms by
+    a task.run rule) and /status and /swimlane.svg are held against the
+    journal after it.  The journal is copied to hist_dir/<label>.jsonl."""
+    from tez_tpu_torch.client.tez_client import TezClient
+    from tez_tpu_torch.common import faults
+    from tez_tpu_torch.common.ids import DAGId
+    from tez_tpu_torch.tools.history_parser import parse_jsonl_files
+    from tez_tpu_torch.tools.swimlane import render_svg
+    t0 = time.perf_counter()
+    client = TezClient.create(dag.name, conf, device=device)
+    client.start()
+    up_s = time.perf_counter() - t0
+    scope = f"phase21-{label}"
+    try:
+        am = client.framework_client.am
+        if hold_ms:
+            reduce0 = str(DAGId(am.app_id, 1).vertex(1).task(0))
+            faults.install(scope, faults.parse_spec(
+                f"task.run:delay:ms={hold_ms},n=1,match="
+                f"{reduce0.replace('task', 'attempt', 1)}_"))
+        with Launches(label, totals) as launches:
+            t0 = time.perf_counter()
+            handle = client.submit_dag(dag)
+            if web:
+                scrape_web(label, am, am.web_ui.url)
+            status = handle.wait_for_completion(timeout=3600)
+            wall = time.perf_counter() - t0
+            sync(device)
+        check(status.state.name == "SUCCEEDED",
+              f"{label}: state {status.state.name}")
+        journal = journal_path(conf["tez.staging-dir"], am.app_id)
+        if web:
+            url = am.web_ui.url
+            code, body = web_get(url + "status")
+            st = json.loads(body)
+            tasks = {v: (s["succeeded"], s["total_tasks"])
+                     for v, s in st["vertices"].items()}
+            check(code == 200 and st["state"] == "SUCCEEDED"
+                  and tasks == {v: (MR_TASKS, MR_TASKS)
+                                for v in ("map", "reduce")},
+                  f"{label}: /status {st['state']} tasks {tasks}")
+            code, svg = web_get(url + "swimlane.svg")
+            dags = parse_jsonl_files([journal])
+            check(code == 200 and svg.decode() == render_svg(
+                list(dags.values())[-1]),
+                  f"{label}: /swimlane.svg differs from render_svg over "
+                  f"the AM's journal")
+            log(f"{label}: /status SUCCEEDED, tasks {json.dumps(tasks)}; "
+                f"/swimlane.svg ({len(svg)} bytes) is render_svg over the "
+                f"journal")
+        counters = status.counters.to_dict() if status.counters else {}
+        counters["DAGCounter"] = am.dag_counters.to_dict().get(
+            "DAGCounter", {})
+    finally:
+        faults.clear(scope)
+        t0 = time.perf_counter()
+        client.stop()
+    log(f"{label}: AM up in {up_s:.3f} s, stopped in "
+        f"{time.perf_counter() - t0:.3f} s")
+    shutil.copy(journal, os.path.join(hist_dir, f"{label}.jsonl"))
+    launches.require(device, *want)
+    return MrRun(status.state.name, wall, counters)
+
+
+def report_mr(label: str, run: MrRun, nbytes: int) -> None:
+    task = run.counters.get("TaskCounter", {})
+    log(f"phase 21 {label}: wall_s={run.wall:.3f} MB={nbytes / 1e6:.1f} "
+        f"MB_per_s={nbytes / 1e6 / run.wall:.1f}; counters "
+        f"{json.dumps(bench_counters(run.counters))}; reduce output "
+        f"records {task.get('REDUCE_OUTPUT_RECORDS', 0)}")
+
+
+def tera_leg(root, device, sz, rng, totals, hist_dir) -> None:
+    """Leg A (module docstring)."""
+    from tez_tpu_torch.io.mapreduce import mr_job_to_dag
+    n = sz["tera_records"]
+    recs = rng.integers(0, 256, (n, TERA_RECORD), dtype=np.uint8)
+    path = os.path.join(root, "terasort.bin")
+    recs.tofile(path)
+    nbytes = recs.nbytes
+    digest = record_digest(recs)
+    parts = {}
+    for run in ("A1", "A2"):
+        out = os.path.join(root, f"out_{run}")
+        dag = terasort_dag(path, out) if run == "A1" else mr_job_to_dag(
+            terasort_job_conf(path, out, MR_TASKS, MR_TASKS))
+        report_mr(run, run_mr(
+            f"mr {run}", dag, mr_conf(root, run), device, totals, hist_dir,
+            web=run == "A1",
+            hold_ms=sz["scrape_hold_ms"] if run == "A1" else 0), nbytes)
+        t0 = time.perf_counter()
+        parts[run] = check_terasort(f"mr {run}", out, recs, MR_TASKS,
+                                    digest)
+        log(f"mr {run}: golden checked in {time.perf_counter() - t0:.3f} s")
+    check(parts["A2"] == parts["A1"], "mr A2: mr_job_to_dag's part files "
+                                      "differ from simple_mr_dag's")
+    log(f"mr A: TeraSort over {n} records ({nbytes} bytes) passed its "
+        f"golden; A2 (mr_job_to_dag) byte-identical to A1")
+
+
+def wordcount_leg(root, corpus, device, sz, totals, hist_dir) -> None:
+    """Leg B (module docstring)."""
+    from tez_tpu_torch.io.mapreduce import mr_chain_dag, simple_mr_dag
+    path, nbytes, golden = corpus.slice_file("mr_wc.txt", 0, sz["wc_mb"])
+    out = os.path.join(root, "out_B1")
+    dag = simple_mr_dag("mr-wordcount", [path], out,
+                        map_fn=MR_JOBS + "wc_map_long",
+                        reduce_fn=MR_JOBS + "wc_reduce",
+                        num_mappers=MR_TASKS, num_reducers=MR_TASKS,
+                        key_serde="text", value_serde="text")
+    report_mr("B1", run_mr("mr B1", dag, mr_conf(root, "B1"), device,
+                           totals, hist_dir), nbytes)
+    rows = check_wordcount_parts("mr B1", out, corpus, golden,
+                                 partitions=MR_TASKS)
+    out = os.path.join(root, "out_B2")
+    dag = mr_chain_dag("mr-chain", [path], out,
+                       map_fn=MR_JOBS + "wc_map_long",
+                       reduce_fns=[MR_JOBS + "count_pass_reduce",
+                                   MR_JOBS + "fold_first_letter_reduce",
+                                   MR_JOBS + "total_reduce"],
+                       num_mappers=MR_TASKS,
+                       num_reducers=[MR_TASKS, MR_TASKS, 1],
+                       key_serde="text", value_serde="text")
+    report_mr("B2", run_mr("mr B2", dag, mr_conf(root, "B2"), device,
+                           totals, hist_dir), nbytes)
+    drawn = np.flatnonzero(golden)
+    letters: collections.Counter = collections.Counter()
+    for word, count in zip(word_bytes(corpus.mat, corpus.lens, drawn),
+                           golden[drawn].tolist()):
+        letters[word[:1]] += count
+    want = b"".join(b"%s\t%d\n" % (k, letters[k]) for k in sorted(letters))
+    check(os.path.exists(os.path.join(out, "_SUCCESS"))
+          and part_bytes(out) == want,
+          "mr B2: the chain's letter totals differ from the golden")
+    log(f"mr B: WordCount ({rows} words) and the 3-stage chain "
+        f"({len(letters)} first letters) passed their goldens")
+
+
+#: leg C's canned shapes: (builder, kwargs, final state); the failing
+#: payload fails every task of every vertex on every attempt
+FAIL_ALL = {"do_fail": True, "failing_task_indices": [-1]}
+SHAPE_RUNS = (
+    ("simple_dag", {"payload": {}}, "SUCCEEDED"),
+    ("simple_dag_3_vertices", {"payload": {}}, "SUCCEEDED"),
+    ("simple_v_dag", {"payload": {}}, "SUCCEEDED"),
+    ("simple_reverse_v_dag", {"payload": {}}, "SUCCEEDED"),
+    ("two_levels_failing_dag", {"payload": {}}, "SUCCEEDED"),
+    ("three_levels_failing_dag", {"payload": {}}, "SUCCEEDED"),
+    ("multi_attempt_dag", {"failing_upto_attempt": 1}, "SUCCEEDED"),
+    ("simple_dag", {"payload": FAIL_ALL}, "FAILED"),
+    ("two_levels_failing_dag", {"payload": FAIL_ALL}, "FAILED"),
+    ("three_levels_failing_dag", {"payload": FAIL_ALL}, "FAILED"),
+)
+
+
+#: the DAG counters of a shape's run that do not hang on timing
+SHAPE_COUNTERS = ("TOTAL_LAUNCHED_TASKS", "NUM_SUCCEEDED_TASKS",
+                  "NUM_FAILED_TASKS", "NUM_KILLED_TASKS")
+
+
+def run_shapes(api_root: str, staging: str, device=None) -> list:
+    """SHAPE_RUNS through one session of api_root's TezClient (the port's
+    on `device`): [(builder, final state, DAG counters)]."""
+    shapes = importlib.import_module(f"{api_root}.models.shapes")
+    tez_client = importlib.import_module(f"{api_root}.client.tez_client")
+    kw = {"device": device} if api_root == "tez_tpu_torch" else {}
+    out = []
+    with tez_client.TezClient.create(
+            "shapes", {"tez.staging-dir": staging,
+                       "tez.am.local.num-containers": MR_TASKS},
+            session=True, **kw) as client:
+        am = client.framework_client.am
+
+        def dag_counters() -> collections.Counter:
+            return collections.Counter(
+                am.dag_counters.to_dict().get("DAGCounter", {}))
+
+        for name, kwargs, _want in SHAPE_RUNS:
+            before = dag_counters()
+            status = client.submit_dag(getattr(shapes, name)(**kwargs))\
+                .wait_for_completion(timeout=600)
+            after = dag_counters()
+            after.subtract(before)
+            out.append((name, status.state.name,
+                        {k: after[k] for k in SHAPE_COUNTERS}))
+    return out
+
+
+def shapes_leg(root, device, sz, rng, totals, hist_dir) -> str:
+    """Leg C (module docstring); returns the path of its task log."""
+    from tez_tpu_torch.common import ndc
+    # the failing shapes' tasks log each injected failure and its trace
+    # under their attempt's id: the log leg D splits
+    log_path = os.path.join(root, "mr_C.log")
+    handler = logging.FileHandler(log_path)
+    handler.addFilter(ndc.NdcFilter())
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s [%(ndc)s] %(name)s: %(message)s"))
+    logging.getLogger().addHandler(handler)
+    try:
+        runs = run_shapes("tez_tpu_torch", os.path.join(root, "staging_C"),
+                          device)
+    finally:
+        logging.getLogger().removeHandler(handler)
+        handler.close()
+    for (name, kwargs, want), (_n, state, _c) in zip(SHAPE_RUNS, runs):
+        check(state == want, f"mr C: {name}({kwargs}) ended {state}, not "
+                             f"{want}")
+    (_n, _s, multi), = [r for r in runs if r[0] == "multi_attempt_dag"]
+    # three vertices of one task, each failing attempts 0 and 1
+    check(multi.get("TOTAL_LAUNCHED_TASKS", 0) >= 6
+          and multi.get("NUM_SUCCEEDED_TASKS", 0) == 3,
+          f"mr C: multi_attempt_dag counters {multi}")
+    log(f"mr C: {len(runs)} canned shapes ended as expected; "
+        f"multi_attempt_dag launched {multi.get('TOTAL_LAUNCHED_TASKS')} "
+        f"attempts for 3 tasks")
+    n = sz["flaky_records"]
+    recs = rng.integers(0, 256, (n, TERA_RECORD), dtype=np.uint8)
+    path = os.path.join(root, "flaky.bin")
+    recs.tofile(path)
+    flaky = {}
+    for run in ("C1", "C2"):
+        out = os.path.join(root, f"out_{run}")
+        dag = terasort_dag(path, out, name=f"flaky-{run}")
+        if run == "C2":
+            with_flaky_fetch(dag, [0])
+        flaky[run] = run_mr(f"mr {run}", dag, mr_conf(root, run), device,
+                            totals, hist_dir, want=())
+        check_terasort(f"mr {run}", out, recs, MR_TASKS)
+    check(part_bytes(os.path.join(root, "out_C2"))
+          == part_bytes(os.path.join(root, "out_C1")),
+          "mr C2: the flaky-fetch edge's parts differ from the clean run's")
+    clean, rerun = (flaky[r].counters.get("DAGCounter", {})
+                    for r in ("C1", "C2"))
+    check(rerun.get("TOTAL_LAUNCHED_TASKS", 0)
+          > clean.get("TOTAL_LAUNCHED_TASKS", 0),
+          f"mr C2: no producer reran ({rerun} against {clean})")
+    log(f"mr C: the flaky fetch reran a producer (launched "
+        f"{rerun.get('TOTAL_LAUNCHED_TASKS')} attempts against "
+        f"{clean.get('TOTAL_LAUNCHED_TASKS')}), parts unchanged")
+    return log_path
+
+
+def journal_dirs(staging: str) -> list:
+    """The recovery directories (one per application) under staging."""
+    out = []
+    for dirpath, dirs, _files in sorted(os.walk(staging)):
+        if os.path.basename(dirpath) == "recovery":
+            out.append(dirpath)
+            dirs[:] = []
+    return sorted(out)
+
+
+def fsck_journals(label: str, staging: str) -> list:
+    """journal_fsck over each application's recovery journals under
+    staging (attempt order); returns [(recovery dir, report)]."""
+    from tez_tpu_torch.tools import journal_fsck as fsck
+    out = []
+    for rec in journal_dirs(staging):
+        files = fsck.discover_journals(rec)
+        check(bool(files), f"{label}: no journal under {rec}")
+        out.append((rec, fsck.fsck_files(files)))
+    check(bool(out), f"{label}: no recovery directory under {staging}")
+    return out
+
+
+def tools_leg(root, log_path: str, hist_dir: str, journals: dict) -> None:
+    """Leg D (module docstring): the offline tools over the phase's
+    journals and log, and journal_fsck over phase 21's and `journals`'
+    ({label: staging directory}) recovery journals."""
+    from tez_tpu_torch.tools import (analyzers, counter_diff,
+                                     history_cache, log_split)
+    from tez_tpu_torch.tools.history_parser import parse_jsonl_files
+
+    def cli(mod, argv) -> str:
+        old, buf = sys.argv, io.StringIO()
+        sys.argv = argv
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main()
+        finally:
+            sys.argv = old
+        check(rc == 0, f"mr D: {argv[0]} returned {rc}")
+        return buf.getvalue()
+
+    files = sorted(os.path.join(hist_dir, f) for f in os.listdir(hist_dir))
+    dags = parse_jsonl_files(files)
+    check(len(dags) == len(files) and all(
+        d.state == "SUCCEEDED" for d in dags.values()),
+        f"mr D: the journals hold {[d.state for d in dags.values()]}")
+    text = cli(analyzers, ["analyzers", *files])
+    check(all(f"=== {i} " in text for i in dags)
+          and text.count("[critical_path]") == len(dags),
+          "mr D: the analyzers CLI missed a DAG")
+    cache = history_cache.DagInfoCache(hist_dir)
+    check(sorted(cache.dag_ids()) == sorted(dags)
+          and all(cache.get(i).state == "SUCCEEDED" for i in dags),
+          f"mr D: the history cache holds {cache.dag_ids()}")
+    cached = cli(analyzers, ["analyzers", "--cache-dir", hist_dir])
+    check(sorted(cached.splitlines()) == sorted(text.splitlines()),
+          "mr D: analyzers --cache-dir differs from the CLI over the files")
+    a1 = [d for d in dags.values() if d.name == "terasort"][0]
+    results = {r.analyzer: r for r in analyzers.analyze_dag(a1)}
+    check(len(results) == len(analyzers.ALL_ANALYZERS)
+          and "map" in str(results["critical_path"].rows),
+          "mr D: the analyzers over A1")
+    diff = cli(counter_diff, ["counter_diff",
+                              os.path.join(hist_dir, "mr A1.jsonl"),
+                              os.path.join(hist_dir, "mr A2.jsonl")])
+    check("wall delta" in diff, "mr D: counter_diff printed no wall delta")
+    with open(log_path) as fh:
+        lines = fh.readlines()
+    counts = log_split.split_log(lines, os.path.join(root, "log_split"))
+    attempts = [k for k in counts if k.startswith("attempt_")]
+    check(sum(counts.values()) == len(lines) and attempts,
+          f"mr D: log_split gave {len(attempts)} attempt files over "
+          f"{len(lines)} lines")
+    verdicts = {}
+    for label, staging in [("21", root)] + sorted(journals.items()):
+        for rec, report in fsck_journals(f"mr D fsck {label}", staging):
+            check(report.ok, f"mr D: journal_fsck {rec}: {report.errors}")
+            verdicts[os.path.relpath(rec, os.path.dirname(staging))] = (
+                sorted({d.inferred_terminal for d in report.dags.values()}),
+                len(report.warnings))
+    log(f"mr D: analyzers over {len(dags)} DAGs (CLI and --cache-dir), "
+        f"counter_diff A1/A2, the history cache, log_split ({len(attempts)} "
+        f"attempt files, {len(lines)} lines) passed; journal_fsck clean "
+        f"over {json.dumps(verdicts)}")
+
+
+def mr_phase(args, device="cuda", corpus=None, journals=None,
+             **sizes) -> dict:
+    """Phase 21 (module docstring) over phase 11's corpus (made here, in a
+    directory of its own, when None); `journals` ({label: staging
+    directory}) adds other phases' recovery journals to leg D's fsck.
+    Returns {"launches": ..., "legs": {leg: wall s}}."""
+    if corpus is None:
+        sz = dict(MR_SIZES, **sizes)
+        with tempfile.TemporaryDirectory(prefix="tez_mr_") as root:
+            return mr_phase(args, device, DagCorpus(
+                root, args, marks_mb=(sz["wc_mb"],), **corpus_sizes(sz)),
+                journals, **sizes)
+    from tez_tpu_torch.ops import async_stage
+    sz = dict(MR_SIZES, **sizes)
+    totals: collections.Counter = collections.Counter()
+    rng = np.random.default_rng(args.seed + 21)
+    root = os.path.join(corpus.root, "mr")
+    hist_dir = os.path.join(root, "history")
+    os.makedirs(hist_dir)
+    async_stage.reset_process_breaker()
+    legs = {}
+
+    def timed(leg, run):
+        before = collections.Counter(totals)
+        t0 = time.perf_counter()
+        out = run()
+        legs[leg] = time.perf_counter() - t0
+        log(f"mr {leg}: leg wall_s={legs[leg]:.3f} launches "
+            f"{json.dumps(dict(totals - before))}")
+        return out
+
+    timed("A", lambda: tera_leg(root, device, sz, rng, totals, hist_dir))
+    timed("B", lambda: wordcount_leg(root, corpus, device, sz, totals,
+                                     hist_dir))
+    log_path = timed("C", lambda: shapes_leg(root, device, sz, rng, totals,
+                                             hist_dir))
+    timed("D", lambda: tools_leg(root, log_path, hist_dir, journals or {}))
+    log("mr: legs A-D passed")
+    return {"launches": dict(totals), "legs": legs}
+
+
 class SettableClock:
     """A clock that stands still until advanced: the breaker's cooldown
     in phase 7 elapses when the script says so, not by wall time."""
@@ -6073,6 +6782,9 @@ def main(argv=None) -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     t0 = time.perf_counter()
+    # g++ builds the host library while nvcc builds the kernels
+    host_build = concurrent.futures.ThreadPoolExecutor(1)
+    host_built = host_build.submit(_build.build_host)
     built = _build.build()
     log(f"build: {time.perf_counter() - t0:.3f} s for {sorted(built)}")
     for kname, info in sorted(built.items()):
@@ -6081,7 +6793,8 @@ def main(argv=None) -> int:
                 log(f"ptxas {kname}: {line.strip()}")
     from tez_tpu_torch.ops import device as device_ops
     held_start = device_ops.held_stream_pairs()
-    host = _build.build_host()
+    host = host_built.result()
+    host_build.shutdown()
     log(f"build: {host['seconds']:.3f} s for the host library "
         f"{os.path.basename(host['path'])} (g++)")
     nproc = os.cpu_count()
@@ -6141,7 +6854,8 @@ def main(argv=None) -> int:
         corpus = DagCorpus(dag_root, args, marks_mb=(
             sz["a_mb"], sz["b_mb"], sz["c_mb"], 2 * sz["c_mb"],
             3 * sz["c_mb"], MESH_SIZES["mesh_mb"], QUERY_SIZES["smj_mb"],
-            2 * QUERY_SIZES["smj_mb"]))
+            2 * QUERY_SIZES["smj_mb"], MR_SIZES["wc_mb"],
+            BENCH_SIZES["owc_mb"]))
         phase11: dict = {}
         dag_launches = dag_phase(args, corpus=corpus, legs_out=phase11)
         log(f"dag: {time.perf_counter() - t0:.3f} s, launches "
@@ -6210,18 +6924,39 @@ def main(argv=None) -> int:
             f"{json.dumps(bench['launches'])}, parts s "
             f"{json.dumps({k: round(v, 3) for k, v in bench['legs'].items()})}"
             f", host library {phase_native('bench')}")
+        t0 = time.perf_counter()
+        log(f"mr phase on {card}")
+        root = corpus.root
+        mr = mr_phase(args, corpus=corpus, journals={
+            "17 A": os.path.join(root, "sa_staging_A"),
+            "17 B": os.path.join(root, "sa_staging_B"),
+            "19": os.path.join(root, "stream", "staging_a")})
+        log(f"mr: {time.perf_counter() - t0:.3f} s, launches "
+            f"{json.dumps(mr['launches'])}, legs s "
+            f"{json.dumps({k: round(v, 3) for k, v in mr['legs'].items()})}"
+            f", host library {phase_native('mr')}")
+    by_phase = {"slice": launches, "spill": spill_launches,
+                "merge": merge_launches, "tasks": task_launches,
+                "dag": dag_launches, "remote": remote_launches,
+                "unordered": unordered["launches"],
+                "mrr": mrr["launches"], "mesh": mesh["launches"],
+                "store": store_launches, "standalone": standalone_launches,
+                "query": query["launches"], "stream": stream["launches"],
+                "bench": bench["launches"], "mr": mr["launches"]}
     launches = collections.Counter(launches)
     launches.update(spill_launches)
     launches.update(merge_launches)
     launches.update(task_launches)
     launches.update(dag_launches)
     launches.update(remote_launches)
-    for later in (unordered, mrr, mesh, query, stream, bench):
+    for later in (unordered, mrr, mesh, query, stream, bench, mr):
         launches.update(later["launches"])
     launches.update(store_launches)
     launches.update(standalone_launches)
     for kname, row in rows.items():
         row["launches"] = launches[kname]
+        row["launches_by_phase"] = {ph: dict(counts).get(kname, 0)
+                                    for ph, counts in by_phase.items()}
     for tpu_kernel, where, names in MAIN_PATH_COUNTERPARTS:
         for kname in names:
             log(f"launch check: {tpu_kernel} ({where}) -> {kname}: "
@@ -6231,7 +6966,7 @@ def main(argv=None) -> int:
                 f"the store and push DAGs, the standalone AM's pods and "
                 f"recovered AM, the query phase's joins, corpus "
                 f"queries and custom edges, the streams and the "
-                f"speculative DAG, and the bench harnesses")
+                f"speculative DAG, the bench harnesses and the MR jobs")
             check(launches[kname] > 0, f"{kname} was never launched on the "
                                        f"slice's main path")
     log(f"launch check: merge_rank (merge_rank_pallas's general-query "
@@ -6240,8 +6975,8 @@ def main(argv=None) -> int:
         f"its runner processes, the unordered edge, MRR, the mesh DAGs, "
         f"the store and push DAGs, the standalone AM's pods and "
         f"recovered AM, the query phase's joins, corpus queries and "
-        f"custom edges, the streams and the speculative DAG, and the "
-        f"bench harnesses")
+        f"custom edges, the streams and the speculative DAG, the bench "
+        f"harnesses and the MR jobs")
     check(launches["merge_rank"] == 0, "the slice launched merge_rank; its "
                                        "merges should run merge_path_pair")
     log(card)

@@ -1828,3 +1828,41 @@ def test_sorter_whose_drain_raises_gives_its_pair_back_on_the_card(
     assert kernels.launches["merge_path_pair"] + \
         kernels.launches["fnv_hash_lanes"] > 0
     assert device.held_stream_pairs() == held0
+
+
+def _terasort(tmp_path, label, dev, records, conf_job=False, web=False):
+    """chip_smoke's leg A job over `records` on `dev`: its part files."""
+    import chip_smoke
+    from tez_tpu_torch.client.tez_client import TezClient
+    from tez_tpu_torch.io.mapreduce import mr_job_to_dag
+    path = str(tmp_path / "tera.bin")
+    if not os.path.exists(path):
+        records.tofile(path)
+    out = str(tmp_path / f"out_{label}")
+    dag = mr_job_to_dag(chip_smoke.terasort_job_conf(path, out, 4, 4)) \
+        if conf_job else chip_smoke.terasort_dag(path, out)
+    with TezClient.create(label, {
+            "tez.staging-dir": str(tmp_path / f"stg_{label}"),
+            "tez.am.local.num-containers": 4,
+            "tez.am.web.enabled": web}, device=dev) as client:
+        assert client.submit_dag(dag).wait_for_completion(timeout=600)\
+            .state.name == "SUCCEEDED"
+    return chip_smoke.check_terasort(label, out, records, 4)
+
+
+def test_mr_terasort_on_the_card_matches_host(cuda, tmp_path):
+    """Phase 21 leg A's job at 2^19 records (4 x 131,072 a map, 1.3 MB of
+    keys: past both device floors): simple_mr_dag and mr_job_to_dag on
+    the card, with the web UI on, give the host run's part files, and the
+    card runs launched fnv_hash_lanes and merge_path_pair."""
+    rng = np.random.default_rng(21)
+    records = rng.integers(0, 256, (1 << 19, 100), dtype=np.uint8)
+    host = _terasort(tmp_path, "host", "cpu", records)
+    kernels.reset_launches()
+    card = _terasort(tmp_path, "card", "cuda", records, web=True)
+    conf = _terasort(tmp_path, "conf", "cuda", records, conf_job=True)
+    assert card == host == conf
+    assert kernels.launches["fnv_hash_lanes"] > 0
+    assert kernels.launches["merge_path_pair"] > 0
+    assert kernels.launches["merge_rank"] == 0
+

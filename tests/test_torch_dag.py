@@ -391,21 +391,24 @@ def _start(conf):
         client.stop()
 
 
-def _conf_start(extra):
-    return lambda tmp_path: _start(dict(
-        extra, **{"tez.staging-dir": str(tmp_path)}))
-
-
-#: each feature the port defers, and how a user would reach it
-DEFERRED = {
-    "web_ui": _conf_start({"tez.am.web.enabled": True}),
-}
-
-
-@pytest.mark.parametrize("feature", sorted(DEFERRED))
-def test_deferred_features_raise(tmp_path, feature):
-    with pytest.raises(NotImplementedError):
-        DEFERRED[feature](tmp_path)
+def test_unknown_runner_mode_is_refused(tmp_path):
+    """The AM refuses a tez.runner.mode it does not know, at the AM's conf
+    and at a DAG's, rather than run in another mode."""
+    with pytest.raises(NotImplementedError, match="tez.runner.mode"):
+        _start({"tez.staging-dir": str(tmp_path / "am"),
+                "tez.runner.mode": "yarn"})
+    from tez_tpu_torch.client.tez_client import TezClient
+    from tez_tpu_torch.common.payload import ProcessorDescriptor
+    from tez_tpu_torch.dag.dag import DAG, Vertex
+    dag = DAG.create("moded").add_vertex(Vertex.create(
+        "v", ProcessorDescriptor.create(
+            "tez_tpu_torch.library.processors:SleepProcessor",
+            payload={"sleep_ms": 1}), 1))
+    dag.set_conf("tez.runner.mode", "yarn")
+    with TezClient.create("x", {"tez.staging-dir": str(tmp_path / "dag")},
+                          device="cpu") as client:
+        with pytest.raises(NotImplementedError, match="tez.runner.mode"):
+            client.submit_dag(dag).wait_for_completion(timeout=60)
 
 
 def test_dag_phase_on_the_host():
@@ -525,5 +528,9 @@ def test_standalone_phase_on_the_host():
         launches = chip_smoke.standalone_phase(
             args, corpus, mesh["host_part"], device="cpu",
             **chip_smoke.TINY_STANDALONE)
+        # phase 21 D's fsck of these journals, held against tez_tpu's
+        from test_torch_journal_fsck import fsck_matches_tez_tpu
+        for leg in ("A", "B"):
+            fsck_matches_tez_tpu(os.path.join(root, f"sa_staging_{leg}"))
     assert launches == {"fnv_hash_bytes": 0, "fnv_hash_lanes": 0,
                         "merge_rank": 0, "merge_path_pair": 0}

@@ -146,7 +146,12 @@ def test_import_guard_no_jax_no_tez_tpu():
                      "tools.profile_kernels", "tools.exchange_bench",
                      "tools.sort_bench", "tools.spill_bench",
                      "tools.history_parser", "tools.trace_export",
-                     "tools.doctor", "tools.query_bench"):
+                     "tools.doctor", "tools.query_bench", "models",
+                     "models.shapes", "io.formats", "io.mapreduce",
+                     "examples.mr_jobs", "tools.swimlane",
+                     "tools.history_cache", "tools.analyzers",
+                     "tools.counter_diff", "tools.log_split", "tools.top",
+                     "tools.journal_fsck", "am.web"):
             assert "tez_tpu_torch." + name in names, name
         # a DAG through the port resolves every descriptor string it
         # carries (a string naming tez_tpu would load it here)

@@ -584,5 +584,8 @@ def test_stream_phase_on_the_host():
         t0 = time.perf_counter()
         out = chip_smoke.stream_phase(args, corpus, device="cpu",
                                       **chip_smoke.TINY_STREAM)
+        # phase 21 D's fsck of the stream's journals, against tez_tpu's
+        from test_torch_journal_fsck import fsck_matches_tez_tpu
+        fsck_matches_tez_tpu(os.path.join(d, "stream", "staging_a"))
     assert set(out["legs"]) == {"A-B", "A slo", "C"}
     assert time.perf_counter() - t0 < 120

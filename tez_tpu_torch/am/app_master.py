@@ -20,8 +20,8 @@ tez.am.max.app.attempts budget.  The AM's optional services are tez_tpu's:
 the sharded dispatcher, speculation, the SLO watchdog, the lock-order
 witness and streaming mode (``open_stream``: resident windowed DAGs, each
 window a DAG on the AM's device, resumed from the window ledger after a
-crash).  The web UI is not ported yet: a conf that enables it is refused
-with NotImplementedError.
+crash) and the web UI (``tez.am.web.enabled``, am/web.py).  An unknown
+``tez.runner.mode`` is refused with NotImplementedError.
 """
 from __future__ import annotations
 
@@ -53,11 +53,10 @@ from tez_tpu_torch.ops.device import resolve_device
 log = logging.getLogger(__name__)
 
 
-#: conf keys of AM features the port lacks (the web UI) or modes it does
-#: not know, each with the values it accepts; another value is refused
+#: conf keys of modes the port does not know, each with the values it
+#: accepts; another value is refused
 _UNPORTED_KEYS = (
     (C.RUNNER_MODE, ("threads", "subprocess", "pods", "", None)),
-    (C.AM_WEB_ENABLED, (False, None)),
 )
 
 
@@ -149,6 +148,10 @@ class DAGAppMaster:
         self.thread_dumper = ThreadDumpHelper(
             int(conf.get(C.THREAD_DUMP_INTERVAL_MS) or 0),
             label=f"am-{app_id}")
+        self.web_ui = None
+        if conf.get(C.AM_WEB_ENABLED):
+            from tez_tpu_torch.am.web import WebUIService
+            self.web_ui = WebUIService(self, port=conf.get(C.AM_WEB_PORT))
         self.history_handler = HistoryEventHandler(
             logging_service, self.recovery_service, conf=conf)
         self.logging_service = logging_service
@@ -247,6 +250,8 @@ class DAGAppMaster:
         self.thread_dumper.start()
         if self.umbilical_server is not None:
             self.umbilical_server.start()
+        if self.web_ui is not None:
+            self.web_ui.start()
         self.telemetry.start()
         self._started = True
         self.history(HistoryEvent(HistoryEventType.AM_STARTED,
@@ -258,6 +263,8 @@ class DAGAppMaster:
         # plane still up, and the final accounting should see the session
         # as the scrapers last did
         self.telemetry.stop()
+        if self.web_ui is not None:
+            self.web_ui.stop()
         self.thread_dumper.stop()
         self.heartbeat_monitor.stop()
         for driver in list(self.streams.values()):
@@ -293,6 +300,8 @@ class DAGAppMaster:
         except BaseException:  # noqa: BLE001 — a fail rule still crashes us
             pass
         self.telemetry.crash()   # no TELEMETRY_SNAPSHOT: SIGKILL analog
+        if self.web_ui is not None:
+            self.web_ui.stop()
         self.thread_dumper.stop()
         self.heartbeat_monitor.stop()
         # abandon — not resolve — the admission queue: parked submitters

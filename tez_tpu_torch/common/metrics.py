@@ -7,8 +7,8 @@ passes its TezCounters, in the ``LatencyHistogram.<name>`` bucket counters
 an armed flight recorder journals it too.  Buckets are powers of two in
 milliseconds (1 ms .. 65536 ms, plus +Inf).  Gauges hold the last value
 set (the async plane's ``device.breaker.state``).  The registry starts
-empty: tez_tpu pre-registers its well-known families for its web UI's
-scrape, which the port does not serve.
+with the well-known families at zero, so the web UI's /metrics scrape
+always exposes them, as tez_tpu's does.
 """
 from __future__ import annotations
 
@@ -100,12 +100,64 @@ class Histogram:
                 "count": self.count, "sum_ms": self.sum_ms}
 
 
+# Histogram families pre-registered on every registry (re)start so the
+# /metrics scrape always exposes the full set — zero-count until observed —
+# and dashboards don't grow holes when a run happens not to spill or commit.
+WELL_KNOWN_HISTOGRAMS = ("shuffle.fetch.rtt", "spill.write", "shuffle.merge",
+                         "am.heartbeat.rtt", "device.sort",
+                         "commit.ledger.fsync",
+                         # async device pipeline stages (ops/async_stage.py):
+                         # host encode, H2D staging, dispatch->host-visible
+                         # latency, D2H readback
+                         "device.encode", "device.h2d",
+                         "device.dispatch_wait", "device.d2h",
+                         # reduce-side device merge latency: merge-path
+                         # ladder dispatches (ops/sorter.py merge_sorted_runs)
+                         # and the async merge lane's dispatch->host-visible
+                         # wait (library/merge_manager.py)
+                         "device.merge",
+                         # host-engine failover re-sorts (failure
+                         # containment, ops/async_stage.py)
+                         "device.failover.host_sort",
+                         # in-process local-fetch short circuit latency
+                         # (shuffle/scheduler.py store/registry fast path)
+                         "shuffle.fetch.short_circuit",
+                         # tiered buffer store (tez_tpu_torch/store): publish
+                         # admission, leased fetch, and watermark demotion
+                         # (host->disk spill happens inside the demote timer)
+                         "store.publish", "store.fetch", "store.demote",
+                         # push shuffle (shuffle/push.py): one eager push
+                         # round trip (same-host publish or remote push
+                         # verb) and the pusher's total admission wait
+                         # (retry-after backoff before accept/give-up)
+                         "shuffle.push.rtt", "shuffle.push.admit_wait",
+                         # mesh exchange (parallel/coordinator.py): one
+                         # exchange round end-to-end — placement, SPMD
+                         # dispatch, per-device readback (coded: first
+                         # complete copy), decode
+                         "mesh.exchange.round",
+                         # session admission (am/admission.py): how long a
+                         # QUEUE-verdict submission parks before the consumer
+                         # promotes it to a running DAG
+                         "am.admit.queue_wait",
+                         # flight recorder (obs/flight.py): one snapshot
+                         # serialize + atomic write when a dump trigger
+                         # (DAG failure, breaker-open, watchdog, shed) fires
+                         "obs.flight.dump",
+                         # streaming mode (am/streaming.py): per-window
+                         # cut->commit latency, and the window lag the
+                         # backpressure gate observed while pacing the
+                         # source (unit: windows, not ms)
+                         "stream.window.latency", "stream.window.lag")
+
+
 class MetricsRegistry:
     """Process-global histograms and gauges by name."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._hist: Dict[str, Histogram] = {}
+        self._hist: Dict[str, Histogram] = {
+            n: Histogram(n) for n in WELL_KNOWN_HISTOGRAMS}
         self._gauges: Dict[str, float] = {}
 
     def histogram(self, name: str) -> Histogram:
@@ -130,7 +182,7 @@ class MetricsRegistry:
 
     def reset(self) -> None:
         with self._lock:
-            self._hist = {}
+            self._hist = {n: Histogram(n) for n in WELL_KNOWN_HISTOGRAMS}
             self._gauges.clear()
 
 

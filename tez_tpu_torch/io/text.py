@@ -12,7 +12,10 @@ The port's copy of tez_tpu.io.text.
 """
 from __future__ import annotations
 
-from tez_tpu_torch.io.formats import MRInput, MRSplitGenerator
+from tez_tpu_torch.io.formats import (FileSplit, MRInput,  # noqa: F401 — re-
+                                      MRSplitGenerator,    # exported names
+                                      _LineReader, compute_splits,
+                                      group_splits)
 
 
 class TextSplitGenerator(MRSplitGenerator):

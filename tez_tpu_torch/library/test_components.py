@@ -1,4 +1,4 @@
-"""Fault-injectable test doubles.
+"""Fault-injectable Input/Processor/Output test doubles.
 
 Reference parity: tez-tests/.../test/{TestInput,TestProcessor,TestOutput}.java
 (config-driven failures by task/attempt index, SURVEY.md §4 item 4).  Payload
@@ -9,19 +9,19 @@ dict keys:
   fatal: bool                   report a FATAL failure
   sleep_ms: int                 delay before acting
 
-The port's copy of two of tez_tpu.library.test_components' doubles: the
-processor a DAG run in runner processes can name (a class in a test module
-would pull the test's imports into every runner), and the scripted fetch
-session behind tez.runtime.shuffle.fetcher.class.  tez_tpu's test input,
-output and flaky-fetch input come when a test needs them.
+The port's copy of tez_tpu.library.test_components: the test input, output
+and processor, the flaky-fetch ordered input, and the scripted fetch session
+behind tez.runtime.shuffle.fetcher.class.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
+from tez_tpu_torch.api.events import TezAPIEvent
 from tez_tpu_torch.api.runtime import (KeyValueReader, LogicalIOProcessor,
-                                       LogicalInput, LogicalOutput)
+                                       LogicalInput, LogicalOutput, Reader,
+                                       Writer)
 
 
 class _FailPolicy:
@@ -49,6 +49,55 @@ class _FailPolicy:
             time.sleep(ms / 1000.0)
 
 
+class _EmptyReader(KeyValueReader):
+    def __iter__(self):
+        return iter(())
+
+
+class TestInput(LogicalInput):
+    def initialize(self) -> List[TezAPIEvent]:
+        self._policy = _FailPolicy(self.context)
+        return []
+
+    def get_reader(self) -> Reader:
+        self._policy.sleep()
+        if self._policy.should_fail():
+            if self._policy.fatal:
+                self.context.fatal_error(None, "TestInput fatal failure")
+            raise RuntimeError(
+                f"TestInput failing task={self.context.task_index} "
+                f"attempt={self.context.task_attempt_number}")
+        return _EmptyReader()
+
+    def handle_events(self, events: Sequence[TezAPIEvent]) -> None:
+        pass
+
+    def close(self) -> List[TezAPIEvent]:
+        return []
+
+
+class _NullWriter(Writer):
+    def write(self, key: Any, value: Any) -> None:
+        pass
+
+
+class TestOutput(LogicalOutput):
+    def initialize(self) -> List[TezAPIEvent]:
+        self._policy = _FailPolicy(self.context)
+        return []
+
+    def get_writer(self) -> Writer:
+        return _NullWriter()
+
+    def handle_events(self, events: Sequence[TezAPIEvent]) -> None:
+        pass
+
+    def close(self) -> List[TezAPIEvent]:
+        if self._policy.should_fail():
+            raise RuntimeError("TestOutput failing at close")
+        return []
+
+
 class TestProcessor(LogicalIOProcessor):
     def initialize(self) -> None:
         self._policy = _FailPolicy(self.context)
@@ -72,6 +121,59 @@ class TestProcessor(LogicalIOProcessor):
 
     def close(self) -> None:
         pass
+
+
+class FlakyFetchOrderedInput(LogicalInput):
+    """OrderedGroupedKVInput wrapper that injects a fetch failure on the
+    first event delivery of attempt 0 of configured tasks (reference:
+    FetcherWithInjectableErrors + FetcherErrorTestingConfig).
+
+    Payload: {"failing_fetch_task_indices": [ints] (default [0]),
+    "inject_delay_ms": int (default 0) — hold the failure report back so the
+    cluster reaches a chosen state first (e.g. all slots occupied)}.
+    """
+
+    def __new__(cls, context, num_physical_inputs):
+        from tez_tpu_torch.library.inputs import OrderedGroupedKVInput
+
+        class _Impl(OrderedGroupedKVInput):
+            def initialize(self):
+                payload = self.context.user_payload.load() or {}
+                if not isinstance(payload, dict):
+                    payload = {}
+                self._failing_tasks = payload.get(
+                    "failing_fetch_task_indices", [0])
+                self._inject_delay = payload.get("inject_delay_ms", 0) / 1e3
+                self._injected = False
+                return super().initialize()
+
+            def handle_events(self, events):
+                from tez_tpu_torch.api.events import (
+                    CompositeRoutedDataMovementEvent, DataMovementEvent,
+                    InputReadErrorEvent)
+                passthrough = []
+                for ev in events:
+                    if (not self._injected
+                            and self.context.task_attempt_number == 0
+                            and self.context.task_index in self._failing_tasks
+                            and isinstance(ev,
+                                           (CompositeRoutedDataMovementEvent,
+                                            DataMovementEvent))):
+                        self._injected = True
+                        if self._inject_delay:
+                            time.sleep(self._inject_delay)
+                        slot = getattr(ev, "target_index_start",
+                                       getattr(ev, "target_index", 0))
+                        self.context.send_events([InputReadErrorEvent(
+                            diagnostics="injected fetch failure",
+                            index=slot, version=ev.version,
+                            is_local_fetch=True)])
+                        continue   # drop just this event: its fetch "failed"
+                    passthrough.append(ev)
+                if passthrough:
+                    super().handle_events(passthrough)
+
+        return _Impl(context, num_physical_inputs)
 
 
 class ScriptedFetchSession:
